@@ -33,6 +33,13 @@
 // executes nothing for it.
 // Plain FP32 FFMA throughout (no TF32/bf16 tensor cores, no fast math):
 // the single-pass reduced-precision form flips winners (see PERF.md).
+//
+// Work counters: when `counters` is not null, the kernel also adds up, in
+// three 64-bit words, the (block, tile) pairs it tested, the (ray, tile)
+// pairs whose thread tested the tile's 128 triangles, and the (ray, tile)
+// slab tests of live rays.  They measure the data-dependent work that
+// bounds the kernel; the render path passes null and pays one uniform
+// branch per tile.
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -69,7 +76,8 @@ mesh_brute_kernel(const float* __restrict__ feat, long long row_stride,
                   const uint8_t* __restrict__ active,
                   const uint8_t* __restrict__ any_hit,
                   const int32_t* __restrict__ exclude, long long n,
-                  float* __restrict__ out_t, int32_t* __restrict__ out_tri) {
+                  float* __restrict__ out_t, int32_t* __restrict__ out_tri,
+                  unsigned long long* __restrict__ counters) {
   __shared__ float coef[NCOEF][TILE];
 
   const int tid = threadIdx.x;
@@ -104,6 +112,11 @@ mesh_brute_kernel(const float* __restrict__ feat, long long row_stride,
 
   for (int j = 0; j < nt; ++j) {
     bool need = false;
+    if (counters) {
+      const unsigned live_mask = __ballot_sync(0xffffffffu, live);
+      if ((tid & 31) == 0 && live_mask)
+        atomicAdd(&counters[2], (unsigned long long)__popc(live_mask));
+    }
     if (live) {
       const float* cl = clusters + 8 * (long long)j;
       const float lx = __ldg(cl + 0), ly = __ldg(cl + 1), lz = __ldg(cl + 2);
@@ -123,6 +136,12 @@ mesh_brute_kernel(const float* __restrict__ feat, long long row_stride,
       need = ent <= fminf(ext, best);
     }
     if (!__syncthreads_or(need)) continue;
+    if (counters) {
+      const unsigned need_mask = __ballot_sync(0xffffffffu, need);
+      if (tid == 0) atomicAdd(&counters[0], 1ull);
+      if ((tid & 31) == 0 && need_mask)
+        atomicAdd(&counters[1], (unsigned long long)__popc(need_mask));
+    }
 
     const float* tile = feat + (long long)j * 4 * TILE + tid;
 #pragma unroll
@@ -186,11 +205,12 @@ int prt_mesh_brute(const float* feat, long long row_stride, int nt,
                    const float* direction, const float* t_init,
                    const uint8_t* active, const uint8_t* any_hit,
                    const int32_t* exclude, long long n, float* out_t,
-                   int32_t* out_tri, void* stream) {
+                   int32_t* out_tri, unsigned long long* counters,
+                   void* stream) {
   const long long blocks = (n + RAYS - 1) / RAYS;
   mesh_brute_kernel<<<(unsigned)blocks, RAYS, 0, (cudaStream_t)stream>>>(
       feat, row_stride, nt, clusters, origin, direction, t_init, active,
-      any_hit, exclude, n, out_t, out_tri);
+      any_hit, exclude, n, out_t, out_tri, counters);
   return (int)cudaGetLastError();
 }
 

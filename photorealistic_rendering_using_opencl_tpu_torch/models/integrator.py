@@ -1,11 +1,13 @@
 """Path-tracing integrator: one shading event for every lane of a batch.
 
-Port of the forward-path parts of
+Port of the render-path parts of
 ``photorealistic_rendering_using_opencl_tpu/models/integrator.py``:
 ``PathState``, ``init_state``, ``gather_material``, ``NeeBatch``,
-``accumulate_nee``, ``shade_step`` and ``_self_exclusion``.  The
-reference's ``tag_hit`` only names tensors for its rematerialisation
-policy; the forward port has none, so the render loop does not call it.
+``accumulate_nee``, ``shade_step``, ``_self_exclusion``, ``_sanitize_grad``
+and ``SCAN_CHUNK``.  The reference's ``tag_hit`` names the intersection
+results for its rematerialisation policy; here the render loop splits the
+intersection into a detached half, which no checkpoint recomputes, and a
+differentiable half (models/pathtracer.py), so nothing needs a name.
 All lanes advance together under masks.  Light hits found by BSDF sampling
 are weighted by the power heuristic against the carried previous pdf, and
 NEE shadow rays are returned deferred so the render loop can merge them
@@ -21,7 +23,7 @@ import torch
 from photorealistic_rendering_using_opencl_tpu_torch.ops import bsdf as bsdf_ops, lights
 from photorealistic_rendering_using_opencl_tpu_torch.ops.intersect import Hit
 from photorealistic_rendering_using_opencl_tpu_torch.ops.math import (
-    fmax3, power_heuristic, to_global, to_local,
+    fetch_float_rows, fmax3, power_heuristic, to_global, to_local,
 )
 from photorealistic_rendering_using_opencl_tpu_torch.ops.rng import Sampler
 from photorealistic_rendering_using_opencl_tpu_torch.scene.types import (
@@ -34,6 +36,11 @@ from photorealistic_rendering_using_opencl_tpu_torch.scene.types import (
 # consumes a fixed window so streams are schedule-invariant
 CAMERA_DIMS = 8
 DIMS_PER_BOUNCE = 16
+
+# iterations per chunk of the differentiable regeneration loop: a budget
+# above one chunk is rounded up to a whole number of chunks, as the
+# reference's nested scan does (its sweep chose 8)
+SCAN_CHUNK = 8
 
 
 class PathState(NamedTuple):
@@ -86,7 +93,7 @@ def gather_material(cfg: SceneConfig, scene: SceneData, mesh_id
              scene.obj_roughness[None]])
         rows = torch.cat([rows, obj_row[None]], dim=0)
         fidx = torch.where(mesh_id == cfg.n_objects, k_obj, idx)
-    vals = rows[fidx]  # [N,10]
+    vals = fetch_float_rows(rows, fidx)  # [N,10]
     props = bsdf_ops.MatProps(
         color=vals[:, 0:3], eta=vals[:, 3:6], k=vals[:, 6:9],
         roughness=vals[:, 9],
@@ -260,6 +267,61 @@ def _self_exclusion(cfg, hit, state_after, n_scatter_before):
         return None
     scattered_now = state_after.n_scatter > n_scatter_before
     return torch.where((hit.tri >= 0) & ~scattered_now, hit.tri, -1)
+
+
+class _SanitizeGrad(torch.autograd.Function):
+    """Identity whose backward replaces non-finite cotangents with zero."""
+
+    @staticmethod
+    def forward(ctx, *xs):
+        ctx.set_materialize_grads(False)
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        return tuple(None if g is None
+                     else torch.nan_to_num(g, nan=0.0, posinf=0.0, neginf=0.0)
+                     for g in gs)
+
+
+def _sanitize_grad(tree):
+    """Identity on a nested tuple/list/NamedTuple of tensors whose backward
+    zeroes non-finite cotangents of its floating leaves.
+
+    The backward pass evaluates every op's partial derivative on every
+    lane, masked-out (dead) lanes included, whose primal values are
+    arbitrary: a zero cotangent times an overflowing partial gives NaN,
+    which would poison the whole parameter gradient.  Where-gating makes
+    the true cotangent of those lanes exactly zero, so zeroing non-finite
+    entries recovers the right gradient (held against finite differences
+    in tests/test_torch_grad.py).  Leaves that carry no gradient pass
+    through untouched.
+    """
+    leaves = []
+
+    def collect(x):
+        if isinstance(x, torch.Tensor):
+            if x.requires_grad:
+                leaves.append(x)
+        elif isinstance(x, (tuple, list)):
+            for y in x:
+                collect(y)
+
+    collect(tree)
+    if not leaves or not torch.is_grad_enabled():
+        return tree
+    clean = iter(_SanitizeGrad.apply(*leaves))
+
+    def rebuild(x):
+        if isinstance(x, torch.Tensor):
+            return next(clean) if x.requires_grad else x
+        if isinstance(x, tuple) and hasattr(x, "_fields"):
+            return type(x)(*(rebuild(y) for y in x))
+        if isinstance(x, (tuple, list)):
+            return type(x)(rebuild(y) for y in x)
+        return x
+
+    return rebuild(tree)
 
 
 def n_steps_for(cfg: SceneConfig, scatter_cap: int = 16) -> int:

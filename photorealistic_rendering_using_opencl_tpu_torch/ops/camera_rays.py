@@ -17,6 +17,9 @@ from photorealistic_rendering_using_opencl_tpu_torch.ops.math import (
     cross, normalize,
 )
 from photorealistic_rendering_using_opencl_tpu_torch.ops.sampling import uniform_disk
+from photorealistic_rendering_using_opencl_tpu_torch.utils.device import (
+    DEFAULT_DEVICE, resolve_device,
+)
 
 CAMERA_KEYS = ("position", "view", "up", "fov", "aperture_radius",
                "focal_distance")
@@ -34,10 +37,11 @@ class Camera:
     aperture_radius: Any = 0.0
     focal_distance: Any = 4.0
 
-    def pytree(self, device) -> dict:
-        """The differentiable leaves as float32 tensors on ``device``."""
+    def pytree(self, device=DEFAULT_DEVICE) -> dict:
+        """The differentiable leaves as float32 tensors on ``device`` (the
+        card unless the caller asks for the CPU)."""
         return pytree_from_numpy(
-            {k: getattr(self, k) for k in CAMERA_KEYS}, device)
+            {k: getattr(self, k) for k in CAMERA_KEYS}, resolve_device(device))
 
 
 def pytree_from_numpy(leaves: dict, device) -> dict:

@@ -1,4 +1,4 @@
-"""Scene intersection for the forward path: analytic spheres and quads, and
+"""Scene intersection for the render path: analytic spheres and quads, and
 the triangle mesh through the brute backend (ops/mesh_brute.py).
 
 Port of the slice's subset of
@@ -7,7 +7,13 @@ ray batch is intersected against each primitive class with broadcasting
 ([rays x objects]); the mesh runs once per call on the merged closest-hit +
 shadow batch.  Selection is detached; the winner is reattached with
 zero-in-primal corrections, ``t_det - (f - f.detach()) / dfdt``, so that
-gradients (ROADMAP M6) only need autograd switched on.
+gradients only need autograd switched on.  The merged dispatch comes in two
+halves so the differentiable render loop can keep the expensive one out
+of its recomputed region: ``intersect_and_shadow_detached`` (analytic
+sweep, shadow tests, the mesh kernel, winner validation; no gradient) and
+``finish_hit`` (the reattach functions; every gradient of the geometry
+enters here).  The two in a row are the reference's
+``intersect_and_shadow``.
 
 SDFs and boxes are ROADMAP M10, the BVH walk M12: a scene with them never
 reaches this module (scene/loader.py raises).
@@ -23,7 +29,7 @@ import torch
 
 from photorealistic_rendering_using_opencl_tpu_torch.ops import mesh_brute
 from photorealistic_rendering_using_opencl_tpu_torch.ops.math import (
-    EPS, RAY_INF, copysign, cross, normalize,
+    EPS, RAY_INF, copysign, cross, fetch_float_rows, normalize,
 )
 from photorealistic_rendering_using_opencl_tpu_torch.scene.types import (
     DIEL, QUAD, ROUGH_DIEL, SceneConfig, SceneData, SPHERE,
@@ -173,7 +179,7 @@ def analytic_reattach(cfg: SceneConfig, scene: SceneData, origin, direction,
     rows = torch.cat(
         [scene.position, scene.params, scene.quad_base, scene.quad_edge0,
          scene.quad_edge1, scene.quad_normal], dim=1)  # [K,19]
-    g = rows[idx]
+    g = fetch_float_rows(rows, idx)
     c, prm = g[:, 0:3], g[:, 3:7]
     qb, qe0, qe1, qn = g[:, 7:10], g[:, 10:13], g[:, 13:16], g[:, 16:19]
     gt = scene.geom_type.detach()[idx]
@@ -192,7 +198,11 @@ def analytic_reattach(cfg: SceneConfig, scene: SceneData, origin, direction,
     if cfg.n_quads:
         n_dif = torch.where((gt & QUAD)[..., None] != 0, qn, n_dif)
     if cfg.n_spheres:
-        n_dif = torch.where((gt & SPHERE)[..., None] != 0, normalize(p - c),
+        # the normal at the REATTACHED hit point: it moves with t, and the
+        # reference's normalize(p - c) with a detached t leaves that term
+        # out (ROADMAP F2: finite differences disagree without it)
+        p_re = origin + direction * t_re[..., None]
+        n_dif = torch.where((gt & SPHERE)[..., None] != 0, normalize(p_re - c),
                             n_dif)
     # match the stored primal's sign so the correction stays zero in primal
     sign = torch.sign(torch.sum(n_dif * normal_det.detach(), dim=-1,
@@ -353,17 +363,28 @@ def _shadow_analytic(cfg: SceneConfig, scene: SceneData, origin, direction,
     return blocked, limit
 
 
-def intersect_and_shadow(cfg: SceneConfig, scene: SceneData,
-                         origin, direction, active, shadow_batches,
-                         exclude_tri=None):
+class DetachedHits(NamedTuple):
+    """The detached half of one merged dispatch, about ten words a lane:
+    the analytic closest hit, the validated mesh winner and the shadow
+    verdicts.  Nothing in it carries a gradient."""
+    t: torch.Tensor  # [N] analytic closest t (RAY_INF on miss)
+    mesh_id: torch.Tensor  # [N] int32 analytic winner, -1 on miss
+    normal: torch.Tensor  # [N,3] analytic winner's normal
+    tri: torch.Tensor | None  # [N] int32 mesh winner (-1: none); None without a mesh
+    visible: list  # one [N] bool per shadow batch
+
+
+@torch.no_grad()
+def intersect_and_shadow_detached(cfg: SceneConfig, scene: SceneData,
+                                  origin, direction, active, shadow_batches,
+                                  exclude_tri=None) -> DetachedHits:
     """Closest hit for one ray batch + occlusion for K shadow batches, with
     the mesh backend invoked ONCE on the concatenated (K+1)N-ray batch
-    (per-lane any-hit flag).
+    (per-lane any-hit flag).  Runs without autograd.
 
     ``shadow_batches``: list of (origin, direction, max_dist, active).
     ``exclude_tri`` may be one [N] row (the same exclusion for every
     segment) or a list of K+1 rows ([closest] + one per shadow batch).
-    Returns (Hit for the closest batch, [visible bool tensors]).
     """
     n = origin.shape[0]
     dev = origin.device
@@ -380,7 +401,7 @@ def intersect_and_shadow(cfg: SceneConfig, scene: SceneData,
         limits.append(lim)
         acts.append(a_s)
 
-    tri = tvs = tns = None
+    tri = None
     if cfg.has_mesh:
         o_all = torch.cat([origin] + [b[0] for b in shadow_batches])
         d_all = torch.cat([direction] + [b[1] for b in shadow_batches])
@@ -398,16 +419,26 @@ def intersect_and_shadow(cfg: SceneConfig, scene: SceneData,
             ex_all = torch.cat(list(exclude_tri))
         else:
             ex_all = exclude_tri.repeat(len(shadow_batches) + 1)
-        _, tri_all, tvs, tns = mesh_closest(cfg, scene, o_all, d_all, t_all,
-                                            any_hit=ah_all, active=act_all,
-                                            exclude_tri=ex_all)
+        _, tri_all, _, _ = mesh_closest(cfg, scene, o_all, d_all, t_all,
+                                        any_hit=ah_all, active=act_all,
+                                        exclude_tri=ex_all)
         tri = tri_all[:n]
         off = n
         for i, b in enumerate(blocked):
             m = b.shape[0]
             blocked[i] = b | (tri_all[off:off + m] >= 0)
             off += m
+    return DetachedHits(t, mesh_id, normal, tri, [~b for b in blocked])
 
-    hit = _finish_hit(cfg, scene, origin, direction, t, mesh_id, normal,
-                      tri, tvs, tns)
-    return hit, [~b for b in blocked]
+
+def finish_hit(cfg: SceneConfig, scene: SceneData, origin, direction,
+               rec: DetachedHits) -> Hit:
+    """The differentiable half: the detached winners reattached to
+    ``origin``/``direction`` and the scene tables (analytic_reattach,
+    tri_reattach, bvh_smooth_normal)."""
+    if rec.tri is None:
+        return _finish_hit(cfg, scene, origin, direction, rec.t, rec.mesh_id,
+                           rec.normal)
+    return _finish_hit(cfg, scene, origin, direction, rec.t, rec.mesh_id,
+                       rec.normal, rec.tri, scene.bf_tri_verts,
+                       scene.bf_tri_normals)

@@ -1,8 +1,9 @@
 """Vector math + orthonormal bases, batched over leading axes.
 
 Port of the helpers of ``photorealistic_rendering_using_opencl_tpu/ops/math.py``
-that the forward render path uses.  The last axis is the 3-vector; the
-operation order follows the reference so results agree to rounding.
+that the render path uses, forward and backward.  The last axis is the
+3-vector; the operation order follows the reference so results agree to
+rounding.
 """
 from __future__ import annotations
 
@@ -90,6 +91,41 @@ def reflect_local(wi: torch.Tensor) -> torch.Tensor:
 def smoothstep(e0, e1, x):
     t = torch.clamp((x - e0) / (e1 - e0), 0.0, 1.0)
     return t * t * (3.0 - 2.0 * t)
+
+
+class _FetchFloatRows(torch.autograd.Function):
+    """``table[idx]`` whose backward is one one-hot product (see
+    ``fetch_float_rows``)."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.k = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        onehot = (idx[:, None] == torch.arange(ctx.k, dtype=idx.dtype,
+                                               device=idx.device)[None, :])
+        return torch.matmul(onehot.to(g.dtype).T, g), None
+
+
+def fetch_float_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table[idx]`` ([K,F] by [N] -> [N,F]) with a deterministic backward.
+
+    Port of the reference's ``fetch_float_rows`` (ops/math.py): the VJP of
+    a row fetch is a segment sum of the [N,F] cotangent into the [K,F]
+    table, computed here as ONE one-hot [K,N] x [N,F] product in float32.
+    Plain indexing's backward would be ``index_put_(accumulate=True)``:
+    atomic adds from every lane into a handful of rows, contended on the
+    card and summed in an order that changes from run to run.  The product
+    runs through ``torch.matmul``, whose float32 products stay out of TF32
+    under PyTorch's default (``torch.backends.cuda.matmul.allow_tf32``
+    False; ``chip_smoke.py`` pins it), so the sum is float32-exact per
+    term, as the reference's HIGHEST-precision product is.
+    """
+    return _FetchFloatRows.apply(table, idx.long())
 
 
 def power_heuristic(pdf0: torch.Tensor, pdf1: torch.Tensor) -> torch.Tensor:

@@ -163,13 +163,16 @@ def _intersect_xla(feat, clusters, origin, direction, t_init, active,
 
 class _MeshBruteKernel:
     """Wrapper of ``prt_mesh_brute`` (csrc/mesh_brute.cu).  ``launches``
-    counts kernel launches and nothing else."""
+    counts kernel launches and nothing else.  ``counters``, an int64 [3]
+    tensor on the card, receives the launch's work counts (tested (block,
+    tile) pairs, (ray, tile) pairs tested triangle by triangle, (ray, tile)
+    slab tests); the render path passes none."""
 
     def __init__(self):
         self.launches = 0
 
     def __call__(self, feat, clusters, origin, direction, t_init, active,
-                 any_hit, exclude):
+                 any_hit, exclude, counters=None):
         dev = origin.device
         n = origin.shape[0]
         nt = clusters.shape[0]
@@ -184,6 +187,8 @@ class _MeshBruteKernel:
         _cuda.require(active, "active", torch.bool, (n,), dev)
         _cuda.require(any_hit, "any_hit", torch.bool, (n,), dev)
         _cuda.require(exclude, "exclude", torch.int32, (n,), dev)
+        if counters is not None:
+            _cuda.require(counters, "counters", torch.int64, (3,), dev)
         out_t = torch.empty((n,), dtype=torch.float32, device=dev)
         out_tri = torch.empty((n,), dtype=torch.int32, device=dev)
         if n == 0:
@@ -193,7 +198,9 @@ class _MeshBruteKernel:
             feat.data_ptr(), feat.stride(0), nt, clusters.data_ptr(),
             origin.data_ptr(), direction.data_ptr(), t_init.data_ptr(),
             active.data_ptr(), any_hit.data_ptr(), exclude.data_ptr(), n,
-            out_t.data_ptr(), out_tri.data_ptr(), _cuda.stream_handle(origin))
+            out_t.data_ptr(), out_tri.data_ptr(),
+            None if counters is None else counters.data_ptr(),
+            _cuda.stream_handle(origin))
         _cuda.check(code, "prt_mesh_brute")
         self.launches += 1
         return out_t, out_tri

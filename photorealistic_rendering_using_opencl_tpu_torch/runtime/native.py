@@ -1,8 +1,10 @@
 """ctypes bindings for the framework-free native host library.
 
-The C++ source is shared with the JAX package
-(``photorealistic_rendering_using_opencl_tpu/runtime/csrc/prt_native.cpp``:
-sweep-SAH BVH build and OBJ import, no framework headers).  It is compiled
+The C++ source, ``runtime/csrc/prt_native.cpp`` in this package (sweep-SAH
+BVH build and OBJ import, no framework headers), is a copy of the JAX
+package's ``runtime/csrc/prt_native.cpp``: the same code, line for line,
+with two comments naming the OpenCL reference's files by their path in
+that project.  It is compiled
 lazily with g++ into this package's own build directory (``_build/``,
 listed in .gitignore) and rebuilt when the source's hash changes.  Where
 g++ is missing, scene/bvh_build.py and scene/obj.py use their Python
@@ -19,9 +21,7 @@ import threading
 import numpy as np
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(os.path.dirname(_PKG_DIR),
-                    "photorealistic_rendering_using_opencl_tpu", "runtime",
-                    "csrc", "prt_native.cpp")
+_SRC = os.path.join(_PKG_DIR, "runtime", "csrc", "prt_native.cpp")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 

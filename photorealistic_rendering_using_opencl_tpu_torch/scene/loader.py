@@ -1,8 +1,10 @@
-"""JSON scene loader -> (SceneConfig, SceneData) on an explicit device.
+"""JSON scene loader -> (SceneConfig, SceneData) on the card by default.
 
 Port of ``photorealistic_rendering_using_opencl_tpu/scene/loader.py`` with
 the brute mesh backend only.  The leaves are built in numpy exactly as the
-reference builds them and copied to ``device`` at the end.
+reference builds them and copied to ``device`` at the end: the CUDA card
+unless the caller passes ``device="cpu"`` (without a card, the default
+raises; it never falls back to the CPU).
 
 Not ported yet, and refused with ``NotImplementedError``: SDFs and boxes
 (ROADMAP M10), a global medium and environment maps (M11), meshes over
@@ -25,6 +27,9 @@ from photorealistic_rendering_using_opencl_tpu_torch.scene.types import (
     ABS_REFR, ABS_REFR2, AU_ETA, AU_K, BECKMANN, BK7_ETA, DIEL, DIFF, LIGHT,
     QUAD, ROUGH_DIEL, SceneConfig, SceneData, SPHERE,
     default_lobes_for_type, empty_scene_data, _np_leaves_to_torch,
+)
+from photorealistic_rendering_using_opencl_tpu_torch.utils.device import (
+    DEFAULT_DEVICE, resolve_device,
 )
 
 _DEFAULT_MODEL_DIRS = (
@@ -81,7 +86,7 @@ def load_scene(path: str, models_dir: str | None = None,
                env_map: np.ndarray | None = None,
                alpha_testing: bool = False,
                phase_function: str = "isotropic",
-               mesh_override=None, *, device):
+               mesh_override=None, *, device=DEFAULT_DEVICE):
     """Load a scene JSON file onto ``device``.
 
     mesh_override: optional (tri_verts, tri_normals) numpy arrays replacing
@@ -108,8 +113,9 @@ def build_scene(doc: dict, models_dir: str | None = None,
                 env_map: np.ndarray | None = None,
                 alpha_testing: bool = False,
                 phase_function: str = "isotropic",
-                mesh_override=None, *, device
+                mesh_override=None, *, device=DEFAULT_DEVICE
                 ) -> tuple[SceneConfig, SceneData]:
+    device = resolve_device(device)
     settings = doc.get("settings", {})
     scene_doc = doc.get("scene", {})
 

@@ -44,3 +44,43 @@ def test_port_source_never_names_jax(path):
     for line in text.splitlines():
         s = line.strip()
         assert not s.startswith(("import jax", "from jax")), (path, line)
+
+
+def test_native_source_is_the_ports_own_copy():
+    """runtime/native.py builds a source inside the port package, the JAX
+    package's code line for line (only comments may differ), and reads
+    nothing of the JAX package."""
+    from photorealistic_rendering_using_opencl_tpu_torch.runtime import native
+    src = pathlib.Path(native._SRC).resolve()
+    assert src.is_relative_to(PKG.resolve())
+    jax_src = (REPO / "photorealistic_rendering_using_opencl_tpu" / "runtime"
+               / "csrc" / "prt_native.cpp")
+    ours, theirs = src.read_text().splitlines(), jax_src.read_text().splitlines()
+    assert len(ours) == len(theirs)
+    changed = [(a, b) for a, b in zip(ours, theirs) if a != b]
+    assert len(changed) <= 2
+    assert all(a.lstrip().startswith("//") and b.lstrip().startswith("//")
+               for a, b in changed)
+    text = (PKG / "runtime" / "native.py").read_text()
+    assert '"photorealistic_rendering_using_opencl_tpu"' not in text
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """load_scene, build_scene and Camera.pytree run on the card unless the
+    caller asks for the CPU; without a card they raise, never fall back."""
+    import torch
+    from photorealistic_rendering_using_opencl_tpu_torch.ops.camera_rays import (
+        default_camera,
+    )
+    from photorealistic_rendering_using_opencl_tpu_torch.scene import loader
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loader.load_scene(str(REPO / "scenes/cornell_simple.json"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loader.build_scene({"scene": {}})
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        default_camera(8, 8).pytree()
+    cfg, sc = loader.load_scene(str(REPO / "scenes/cornell_simple.json"),
+                                device="cpu")
+    assert sc.device.type == "cpu"
+    assert default_camera(8, 8).pytree("cpu")["position"].device.type == "cpu"

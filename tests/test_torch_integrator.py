@@ -1,7 +1,11 @@
 """One regeneration iteration, piece by piece, against the JAX package:
-``shade_step``, the merged ``intersect_and_shadow`` dispatch and the whole
-``_regen_step``, all from the same mid-render carry (cornell + icosphere
-with the COAT material, so every ported BSDF family and the mesh run)."""
+``shade_step``, the merged dispatch (the port's detached
+``intersect_and_shadow_detached`` + differentiable ``finish_hit``, against
+the reference's ``intersect_and_shadow``) and the whole ``_regen_step`` (the
+port's loops' halves, ``_shade_regenerate`` -> ``_regen_dispatch`` ->
+``finish_hit`` + ``accumulate_nee``), all from the same mid-render carry
+(cornell + icosphere with the COAT material, so every ported BSDF family
+and the mesh run)."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -116,10 +120,12 @@ def test_intersect_and_shadow_matches_reference(setup):
     jh, jvis = j_isect.intersect_and_shadow(
         s["jcfg"], s["jsc"], jstate.origin, jstate.direction, jstate.alive,
         batches, exclude_tri=ex_list)
-    th, tvis = intersect.intersect_and_shadow(
-        s["cfg"], s["sc"], _t(jstate.origin), _t(jstate.direction),
-        _t(jstate.alive), [tuple(_t(x) for x in b) for b in batches],
+    o, d = _t(jstate.origin), _t(jstate.direction)
+    rec = intersect.intersect_and_shadow_detached(
+        s["cfg"], s["sc"], o, d, _t(jstate.alive),
+        [tuple(_t(x) for x in b) for b in batches],
         exclude_tri=[_t(x) for x in ex_list])
+    th, tvis = intersect.finish_hit(s["cfg"], s["sc"], o, d, rec), rec.visible
     for f in ("tri", "mesh_id", "backside"):
         _assert_same(f"hit.{f}", getattr(th, f), getattr(jh, f))
     for f in ("t", "pos", "normal"):
@@ -135,11 +141,19 @@ def test_regen_step_matches_reference(setup):
                             s["px"], s["py"], s["pix"], SEED, "pcg4d", True,
                             s["carry"])
     px, py = pathtracer.pixel_grid(W, H, "cpu")
-    tout = pathtracer._regen_step(s["cfg"], s["sc"], s["cam"], W, H, SPP,
-                                  px, py, py * W + px, SEED, "pcg4d", True,
-                                  _port_carry(s["carry"]))
+    # the production loops' order: shade + regenerate, the detached
+    # dispatch, then (at the start of the next iteration) the reattach and
+    # the NEE bank
+    shaded = pathtracer._shade_regenerate(
+        s["cfg"], s["sc"], s["cam"], W, H, SPP, px, py, py * W + px, SEED,
+        "pcg4d", True, _port_carry(s["carry"]))
+    state, nee, rec, *rest = pathtracer._regen_dispatch(s["cfg"], s["sc"],
+                                                        shaded)
+    thit = intersect.finish_hit(s["cfg"], s["sc"], state.origin,
+                                state.direction, rec)
+    tstate = integrator.accumulate_nee(state, nee, rec.visible)
+    tout = (tstate, thit, *rest)
     jstate, jhit = jout[0], jout[1]
-    tstate, thit = tout[0], tout[1]
     for f in jstate._fields:
         _assert_same(f"state.{f}", getattr(tstate, f), getattr(jstate, f))
     for f in jhit._fields:

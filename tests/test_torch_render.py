@@ -89,13 +89,20 @@ def test_library_recipe_writes_png(tmp_path):
 
 
 @pytest.mark.parametrize("method, item", [("scan", "M9"), ("while", "M9"),
-                                          ("regen_scan", "M6"),
                                           ("bdpt", "M13")])
 def test_unported_methods_raise(method, item):
     cfg, sc = load_scene("scenes/cornell_simple.json", device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         pathtracer.render(cfg, sc, default_camera(8, 8).pytree("cpu"), 8, 8, 1,
                           method=method)
+
+
+def test_regen_scan_needs_regen_iters():
+    """As the reference: the differentiable loop's budget is not guessed."""
+    cfg, sc = load_scene("scenes/cornell_simple.json", device="cpu")
+    with pytest.raises(ValueError, match="regen_iters"):
+        pathtracer.render(cfg, sc, default_camera(8, 8).pytree("cpu"), 8, 8, 1,
+                          method="regen_scan")
 
 
 def test_regen_raises_past_its_iteration_bound():
