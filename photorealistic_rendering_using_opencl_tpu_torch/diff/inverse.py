@@ -2,9 +2,10 @@
 target image.
 
 Port of ``photorealistic_rendering_using_opencl_tpu/diff/inverse.py``, on
-one device: render -> L2 image loss -> Adam on float leaves of SceneData.
-The reference's default method, ``method="scan"``, is ROADMAP M9; the port
-runs ``method="regen_scan"``, the differentiable path-regeneration loop.
+one device: render -> L2 image loss -> Adam on float leaves of SceneData,
+through either differentiable render method: ``"scan"`` (the default, one
+``integrator.trace`` per sample) or ``"regen_scan"`` (the path-regeneration
+loop, with a calibrated iteration budget).
 """
 from __future__ import annotations
 
@@ -64,23 +65,22 @@ def fit_scene(cfg: SceneConfig, scene: SceneData, cam, width: int,
     parameters are clipped at >= 0 (colours stay non-negative).  Step i
     renders with seed i + 1, a fresh RNG stream per step.
 
-    The iteration budget of ``regen_scan`` is calibrated once, on the
-    initial scene with seed 1 and ``regen_margin`` headroom.  A trajectory
-    that lengthens paths past it makes ``render`` raise rather than
-    return a partial image.
+    ``method="scan"`` traces every bounce of every sample and needs no
+    budget.  The iteration budget of ``regen_scan`` is calibrated once, on
+    the initial scene with seed 1 and ``regen_margin`` headroom; a
+    trajectory that lengthens paths past it makes ``render`` raise rather
+    than return a partial image.
     """
-    if method != "regen_scan":
-        if method in ("scan", "while"):
-            raise NotImplementedError(
-                f"fit_scene(method={method!r}) needs render(method="
-                f"{method!r}), ROADMAP M9; the port has method='regen_scan'")
-        raise ValueError(f"fit_scene needs a differentiable render method, "
-                         f"not {method!r}")
+    if method not in ("scan", "regen_scan"):
+        raise ValueError(f"fit_scene needs a differentiable render method "
+                         f"('scan' or 'regen_scan'), not {method!r}")
     param_leaves = tuple(param_leaves)
     params = {k: getattr(scene, k).detach().clone().requires_grad_()
               for k in param_leaves}
-    regen_iters = pathtracer.calibrate_regen_iters(
-        cfg, scene, cam, width, height, spp, seed=1, margin=regen_margin)
+    regen_iters = 0
+    if method == "regen_scan":
+        regen_iters = pathtracer.calibrate_regen_iters(
+            cfg, scene, cam, width, height, spp, seed=1, margin=regen_margin)
     loss_fn = make_loss_fn(cfg, scene, cam, width, height, spp, target,
                            param_leaves, method=method,
                            regen_iters=regen_iters)

@@ -1,27 +1,34 @@
-"""Path-tracing integrator: one shading event for every lane of a batch.
+"""Path-tracing integrator: one shading event for every lane of a batch,
+and the reference's per-sample bounce loops.
 
-Port of the render-path parts of
-``photorealistic_rendering_using_opencl_tpu/models/integrator.py``:
+Port of ``photorealistic_rendering_using_opencl_tpu/models/integrator.py``:
 ``PathState``, ``init_state``, ``gather_material``, ``NeeBatch``,
-``accumulate_nee``, ``shade_step``, ``_self_exclusion``, ``_sanitize_grad``
-and ``SCAN_CHUNK``.  The reference's ``tag_hit`` names the intersection
-results for its rematerialisation policy; here the render loop splits the
-intersection into a detached half, which no checkpoint recomputes, and a
-differentiable half (models/pathtracer.py), so nothing needs a name.
+``accumulate_nee``, ``shade_step``, ``_self_exclusion``, ``bounce_step``,
+``_sanitize_grad``, ``n_steps_for``, ``SCAN_CHUNK`` and ``trace`` (methods
+``scan`` and ``while``).  The reference's ``tag_hit`` names the
+intersection results for its rematerialisation policy; here the loops
+split the intersection into a detached half, which no checkpoint
+recomputes, and a differentiable half, so nothing needs a name.
 All lanes advance together under masks.  Light hits found by BSDF sampling
 are weighted by the power heuristic against the carried previous pdf, and
-NEE shadow rays are returned deferred so the render loop can merge them
-into one mesh dispatch.  The medium and environment-map branches of the reference
-are ROADMAP M11; ``shade_step`` raises on a scene that needs them.
+NEE shadow rays are returned deferred so the loops can merge them into
+one mesh dispatch.  The medium and environment-map branches of the
+reference are ROADMAP M11; ``shade_step`` raises on a scene that needs
+them.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from photorealistic_rendering_using_opencl_tpu_torch.ops import bsdf as bsdf_ops, lights
-from photorealistic_rendering_using_opencl_tpu_torch.ops.intersect import Hit
+from photorealistic_rendering_using_opencl_tpu_torch.ops import (
+    bsdf as bsdf_ops, intersect, lights,
+)
+from photorealistic_rendering_using_opencl_tpu_torch.ops.intersect import (
+    Hit, intersect_scene, shadow_visible,
+)
 from photorealistic_rendering_using_opencl_tpu_torch.ops.math import (
     fetch_float_rows, fmax3, power_heuristic, to_global, to_local,
 )
@@ -269,6 +276,28 @@ def _self_exclusion(cfg, hit, state_after, n_scatter_before):
     return torch.where((hit.tri >= 0) & ~scattered_now, hit.tri, -1)
 
 
+def bounce_step(cfg: SceneConfig, scene: SceneData, state: PathState,
+                sampler: Sampler, bounce=0) -> PathState:
+    """Advance every live path by one event, one dispatch per phase:
+    intersect, shade, then one ``shadow_visible`` per NEE batch.
+
+    ``trace`` instead pipelines ``shade_step`` with one merged dispatch and
+    threads the previous bounce's self-exclusion into it, which a single
+    bounce cannot, so the two can differ at grazing self-hits.  For tools
+    and tests; ``shadow_visible`` is looked up in this module at call time
+    (``tools/barrier_test.py`` swaps it).  ``bounce`` is unused, as in the
+    reference.
+    """
+    hit = intersect_scene(cfg, scene, state.origin, state.direction,
+                          active=state.alive)
+    was_scatter = state.n_scatter
+    state, nee = shade_step(cfg, scene, state, hit, sampler)
+    excl = _self_exclusion(cfg, hit, state, was_scatter)
+    vis = [shadow_visible(cfg, scene, b.origin, b.direction, b.dist,
+                          active=b.active, exclude_tri=excl) for b in nee]
+    return accumulate_nee(state, nee, vis)
+
+
 class _SanitizeGrad(torch.autograd.Function):
     """Identity whose backward replaces non-finite cotangents with zero."""
 
@@ -328,3 +357,87 @@ def n_steps_for(cfg: SceneConfig, scatter_cap: int = 16) -> int:
     extra = (min(cfg.max_scattering_events, scatter_cap)
              if cfg.has_global_medium else 0)
     return cfg.max_bounces + extra
+
+
+def _trace_shade(cfg: SceneConfig, scene: SceneData, pixel_idx, sample_idx,
+                 seed, rng_scheme: str, carry, bounce: int):
+    """The differentiable half of one bounce of ``trace``: reattach the
+    previous dispatch's winners, bank its NEE light, shade -> (state, NEE
+    batches, self-exclusion row)."""
+    state, nee, rec = carry
+    hit = intersect.finish_hit(cfg, scene, state.origin, state.direction, rec)
+    state = accumulate_nee(state, nee, rec.visible)
+    sampler = Sampler(pixel_idx, sample_idx, seed=seed, scheme=rng_scheme,
+                      dim=CAMERA_DIMS + bounce * DIMS_PER_BOUNCE)
+    was_scatter = state.n_scatter
+    state, nee = shade_step(cfg, scene, state, hit, sampler)
+    return state, nee, _self_exclusion(cfg, hit, state, was_scatter)
+
+
+def _trace_dispatch(cfg: SceneConfig, scene: SceneData, shaded, last: bool):
+    """The detached half: ONE merged dispatch of the next closest-hit rays
+    and this vertex's NEE shadow rays.  On the last bounce the closest
+    batch is never shaded, so its lanes go in inactive."""
+    state, nee, excl = shaded
+    active = torch.zeros_like(state.alive) if last else state.alive
+    rec = intersect.intersect_and_shadow_detached(
+        cfg, scene, state.origin, state.direction, active,
+        [(b.origin, b.direction, b.dist, b.active) for b in nee],
+        exclude_tri=excl)
+    return state, nee, rec
+
+
+def trace(cfg: SceneConfig, scene: SceneData, origin, direction,
+          pixel_idx, sample_idx, seed=0, rng_scheme: str = "pcg4d",
+          scatter_cap: int = 16, method: str = "scan"):
+    """Trace one sample per ray to termination -> (radiance [N,3], alpha
+    [N]).
+
+    The reference's software-pipelined bounce loop: one closest-hit
+    dispatch up front, then per bounce ``k`` shade the hit of ``k - 1`` and
+    launch ONE merged dispatch (next closest rays + this vertex's NEE
+    shadow rays), so the mesh kernel runs ``n_steps + 1`` times a sample.
+
+    ``method="scan"``: every one of the ``n_steps`` bounces, differentiable.
+    Each bounce's shading half runs in its own ``torch.utils.checkpoint``
+    segment whose boundary is the detached dispatch result (the
+    reference's ``save_only_these_names("hit")`` policy), and its output
+    passes ``_sanitize_grad``, so the backward recomputes the shading and
+    never the mesh kernel.  The reference nests its scan in ``SCAN_CHUNK``
+    segments to bound compile time; the padded bounces shade nothing, so
+    a flat loop gives the same result without their dispatches.
+
+    ``method="while"``: forward only (runs under ``torch.no_grad()``); it
+    stops once no lane is alive, at one host sync per bounce.  The RNG is
+    keyed on the bounce index, so both methods give the same radiance.
+    """
+    if method not in ("scan", "while"):
+        raise ValueError(f"trace: unknown method {method!r}")
+    n_steps = n_steps_for(cfg, scatter_cap)
+    grad = method == "scan" and torch.is_grad_enabled()
+    with torch.set_grad_enabled(grad):
+        state = init_state(origin, direction)
+        rec = intersect.intersect_and_shadow_detached(
+            cfg, scene, origin, direction, state.alive, [])
+        carry = (state, [], rec)
+
+        def shade(c, bounce):
+            return _trace_shade(cfg, scene, pixel_idx, sample_idx, seed,
+                                rng_scheme, c, bounce)
+
+        for bounce in range(n_steps):
+            last = bounce + 1 >= n_steps
+            if method == "while":
+                if not bool(carry[0].alive.any()):
+                    break
+                shaded = shade(carry, bounce)
+            elif grad:
+                shaded = _sanitize_grad(checkpoint(
+                    shade, carry, bounce, use_reentrant=False,
+                    preserve_rng_state=False))
+            else:
+                shaded = shade(carry, bounce)
+            carry = _trace_dispatch(cfg, scene, shaded, last)
+        state, nee, rec = carry
+        state = accumulate_nee(state, nee, rec.visible)
+    return state.acc, state.alpha

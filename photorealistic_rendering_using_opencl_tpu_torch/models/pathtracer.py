@@ -1,17 +1,18 @@
-"""Renderer front-end: the path-regeneration render of a full frame, its
-differentiable form, and that form's iteration budget.
+"""Renderer front-end: full-frame renders by the reference's four methods.
 
-Port of the regeneration loop of
-``photorealistic_rendering_using_opencl_tpu/models/pathtracer.py``:
-``pixel_grid``, ``camera_rays_for_sample``, ``_regen_carry0``,
-``_regen_step`` (as the two halves below), ``trace_regen``,
-``trace_regen_scan``, ``calibrate_regen_iters`` and
-``render(method="regen" | "regen_scan")``.
-Each lane owns one pixel and traces its samples back to back; a lane whose
-path dies starts its next sample in the same iteration, and one merged
-mesh dispatch per iteration carries every lane's next ray and NEE shadow
-ray.  The RNG is keyed on (pixel, sample, dim, seed), so the image does not
-depend on the schedule.
+Port of ``photorealistic_rendering_using_opencl_tpu/models/pathtracer.py``:
+``pixel_grid``, ``camera_rays_for_sample``, ``render_sample``,
+``_regen_carry0``, ``_regen_step`` (as the two halves below),
+``trace_regen``, ``trace_regen_scan``, ``calibrate_regen_iters`` and
+``render(method="scan" | "while" | "regen" | "regen_scan")``.
+
+``scan`` (the default, differentiable) and ``while`` (forward only) loop
+over the samples, each one ``integrator.trace`` of every pixel.  The
+regeneration methods instead let each lane own one pixel and trace its
+samples back to back; a lane whose path dies starts its next sample in
+the same iteration, and one merged mesh dispatch per iteration carries
+every lane's next ray and NEE shadow ray.  The RNG is keyed on (pixel,
+sample, dim, seed), so the image does not depend on the schedule.
 
 An iteration is two halves.  ``_regen_shade`` reattaches the previous
 dispatch's winners (``intersect.finish_hit``), banks its NEE light, shades
@@ -23,8 +24,8 @@ the dispatch's result as the segment's boundary, so the backward pass
 recomputes the shading and never the traversal (the reference saves its
 named "hit" records for the same reason).
 
-The other methods (``scan``, ``while``: ROADMAP M9; ``bdpt``: M13), AOVs
-and progressive rendering (M8) are not ported yet.
+BDPT (ROADMAP M13), AOVs and progressive rendering (M8) are not ported
+yet.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ from photorealistic_rendering_using_opencl_tpu_torch.scene.types import (
     SceneConfig, SceneData,
 )
 
-_OTHER_METHODS = {"scan": "M9", "while": "M9", "bdpt": "M13"}
+_OTHER_METHODS = {"bdpt": "M13"}
 
 
 def pixel_grid(width: int, height: int, device):
@@ -60,6 +61,27 @@ def camera_rays_for_sample(cam_pytree, width, height, px, py, pixel_idx,
                                      (jx, jy), (a1, a2), jitter=jitter)
 
 
+def render_sample(cfg: SceneConfig, scene: SceneData, cam_pytree,
+                  width: int, height: int, sample_idx, seed=0,
+                  rng_scheme: str = "pcg4d", jitter: bool = True,
+                  method: str = "scan", bdpt_max_depth: int | None = None):
+    """One sample per pixel -> (radiance [N,3], alpha [N])."""
+    if method not in ("scan", "while"):
+        item = _OTHER_METHODS.get(method)
+        if item is None:
+            raise ValueError(f"render_sample: unknown method {method!r}")
+        raise NotImplementedError(
+            f"render_sample(method={method!r}) is ROADMAP {item}")
+    px, py = pixel_grid(width, height, scene.device)
+    pixel_idx = py * width + px
+    origin, direction = camera_rays_for_sample(
+        cam_pytree, width, height, px, py, pixel_idx, sample_idx, seed,
+        rng_scheme, jitter)
+    return integrator.trace(cfg, scene, origin, direction, pixel_idx,
+                            sample_idx, seed=seed, rng_scheme=rng_scheme,
+                            method=method)
+
+
 def render(cfg: SceneConfig, scene: SceneData, cam_pytree,
            width: int, height: int, spp: int, seed=0,
            rng_scheme: str = "pcg4d", jitter: bool = True,
@@ -67,19 +89,34 @@ def render(cfg: SceneConfig, scene: SceneData, cam_pytree,
            bdpt_max_depth: int | None = None):
     """Full render -> (hdr [H,W,3], alpha [H,W]) on the scene's device.
 
+    ``method="scan"`` (differentiable) and ``method="while"`` (forward
+    only, early exit) trace all pixels one sample at a time;
     ``method="regen"`` renders without autograd (the reference's fastest
-    forward method); ``method="regen_scan"`` is the differentiable loop
-    and needs ``regen_iters`` (from ``calibrate_regen_iters``).  Where the
-    reference returns a partial image when that budget is too small, this
-    raises.  The signature is the reference's.
+    forward method); ``method="regen_scan"`` is the differentiable
+    regeneration loop and needs ``regen_iters`` (from
+    ``calibrate_regen_iters``).  Where the reference returns a partial
+    image when that budget is too small, this raises.  The RNG is keyed on
+    (pixel, sample), so all four agree per pixel up to float summation
+    order.  The signature is the reference's.
     """
-    if method not in ("regen", "regen_scan"):
+    if method not in ("scan", "while", "regen", "regen_scan"):
         item = _OTHER_METHODS.get(method)
         if item is None:
             raise ValueError(f"unknown render method {method!r}")
         raise NotImplementedError(
             f"render(method={method!r}) is ROADMAP {item}; the port has "
-            "method='regen' and 'regen_scan'")
+            "method='scan', 'while', 'regen' and 'regen_scan'")
+    if method in ("scan", "while"):
+        n = width * height
+        acc = torch.zeros((n, 3), dtype=torch.float32, device=scene.device)
+        aac = torch.zeros((n,), dtype=torch.float32, device=scene.device)
+        for s in range(spp):
+            rad, alpha = render_sample(cfg, scene, cam_pytree, width, height,
+                                       s, seed, rng_scheme, jitter, method)
+            acc = acc + rad
+            aac = aac + alpha
+        return ((acc / spp).reshape(height, width, 3),
+                (aac / spp).reshape(height, width))
     if method == "regen_scan" and regen_iters <= 0:
         raise ValueError("method='regen_scan' needs regen_iters > 0 "
                          "(see calibrate_regen_iters)")

@@ -1,10 +1,15 @@
 """Builds and loads the hand-written CUDA kernels (``csrc/*.cu``).
 
 The sources have a plain C interface (no PyTorch headers), so ``nvcc``
-builds them in seconds into one shared library, loaded with ``ctypes``:
+builds them in seconds, one process per source, all started together, and
+links them into one shared library, loaded with ``ctypes``:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -Xptxas=-v -o _build/libprt_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -Xptxas=-v -c -o <objects>/<name>.o csrc/<name>.cu
+    nvcc -shared -o _build/libprt_kernels_<hash>.so <objects>/*.o
+
+(``<objects>`` is a directory of this process under ``_build/``, removed
+after the link.)
 
 The build runs at the first launch, never at import, into the package's
 ``_build/`` directory (listed in .gitignore); a change to any source
@@ -30,7 +35,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 
 _c_vp = ctypes.c_void_p
 _c_int = ctypes.c_int
@@ -42,6 +47,10 @@ _SIGNATURES = {
                        _c_vp],
     "prt_tonemap": [_c_vp, _c_vp, _c_int, _c_int, _c_float, _c_int, _c_vp],
     "prt_block_scan": [_c_vp, _c_vp, _c_vp, _c_ll, _c_int, _c_vp],
+    "prt_matmul_only": [_c_vp, _c_int, _c_vp, _c_vp, _c_ll, _c_int, _c_ll,
+                        _c_int, _c_vp, _c_vp, _c_vp],
+    "prt_passthrough_rows": [_c_vp, _c_vp, _c_ll, _c_vp],
+    "prt_passthrough_flat": [_c_vp, _c_vp, _c_ll, _c_vp],
 }
 
 
@@ -76,16 +85,36 @@ class KernelLibrary:
         so = self._so_path()
         if os.path.exists(so):
             return so
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *self.sources()]
+        obj_dir = f"{so[:-3]}.{os.getpid()}.o"
+        os.makedirs(obj_dir, exist_ok=True)
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-        self.build_log = res.stdout + res.stderr
+        jobs = []
+        for src in self.sources():
+            obj = os.path.join(obj_dir, os.path.basename(src)[:-3] + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for cmd, _, proc in jobs:
+            out, _ = proc.communicate(timeout=900)
+            logs.append(out)
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)} ({proc.returncode})")
+        self.build_log = "".join(logs)
+        if failed:
+            raise RuntimeError("nvcc failed: " + "; ".join(failed) + "\n"
+                               + self.build_log)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [nvcc, "-shared", "-o", tmp, *(obj for _, obj, _ in jobs)]
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
+        self.build_log += res.stdout + res.stderr
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
                                f"{' '.join(cmd)}\n{self.build_log}")
         os.replace(tmp, so)
+        shutil.rmtree(obj_dir, ignore_errors=True)
         self.build_seconds = time.perf_counter() - t0
         return so
 

@@ -8,12 +8,14 @@ ray batch is intersected against each primitive class with broadcasting
 shadow batch.  Selection is detached; the winner is reattached with
 zero-in-primal corrections, ``t_det - (f - f.detach()) / dfdt``, so that
 gradients only need autograd switched on.  The merged dispatch comes in two
-halves so the differentiable render loop can keep the expensive one out
-of its recomputed region: ``intersect_and_shadow_detached`` (analytic
+halves so the differentiable render loops can keep the expensive one out
+of their recomputed regions: ``intersect_and_shadow_detached`` (analytic
 sweep, shadow tests, the mesh kernel, winner validation; no gradient) and
 ``finish_hit`` (the reattach functions; every gradient of the geometry
-enters here).  The two in a row are the reference's
-``intersect_and_shadow``.
+enters here).  The reference's one-piece entry points are those halves in
+a row: ``intersect_scene`` (a closest-hit batch alone),
+``intersect_and_shadow`` (closest hits and shadow batches), and
+``shadow_visible`` (one shadow batch, the mesh last).
 
 SDFs and boxes are ROADMAP M10, the BVH walk M12: a scene with them never
 reaches this module (scene/loader.py raises).
@@ -442,3 +444,40 @@ def finish_hit(cfg: SceneConfig, scene: SceneData, origin, direction,
     return _finish_hit(cfg, scene, origin, direction, rec.t, rec.mesh_id,
                        rec.normal, rec.tri, scene.bf_tri_verts,
                        scene.bf_tri_normals)
+
+
+def intersect_scene(cfg: SceneConfig, scene: SceneData, origin, direction,
+                    active=None, exclude_tri=None) -> Hit:
+    """Closest hit of one ray batch: the detached dispatch with no shadow
+    batch, then ``finish_hit``."""
+    rec = intersect_and_shadow_detached(cfg, scene, origin, direction, active,
+                                        [], exclude_tri=exclude_tri)
+    return finish_hit(cfg, scene, origin, direction, rec)
+
+
+def intersect_and_shadow(cfg: SceneConfig, scene: SceneData, origin,
+                         direction, active, shadow_batches, exclude_tri=None):
+    """The reference's merged dispatch in one piece -> (Hit of the closest
+    batch, [visible [N] bool per shadow batch])."""
+    rec = intersect_and_shadow_detached(cfg, scene, origin, direction, active,
+                                        shadow_batches,
+                                        exclude_tri=exclude_tri)
+    return finish_hit(cfg, scene, origin, direction, rec), rec.visible
+
+
+@torch.no_grad()
+def shadow_visible(cfg: SceneConfig, scene: SceneData, origin, direction,
+                   max_dist, active=None, exclude_tri=None) -> torch.Tensor:
+    """True where the segment [origin, origin + direction * max_dist] is
+    unoccluded.  The mesh runs last, over only the lanes that are active
+    and that no analytic object blocks."""
+    blocked, limit = _shadow_analytic(cfg, scene, origin, direction,
+                                      max_dist, active=active)
+    if cfg.has_mesh:
+        act = (active if active is not None
+               else torch.ones_like(blocked))
+        _, tri, _, _ = mesh_closest(cfg, scene, origin, direction, limit,
+                                    any_hit=True, active=act & ~blocked,
+                                    exclude_tri=exclude_tri)
+        blocked = blocked | (tri >= 0)
+    return ~blocked

@@ -51,6 +51,11 @@ def fmax3(v: torch.Tensor) -> torch.Tensor:
     return torch.amax(v, dim=-1)
 
 
+def sgn_e(x: torch.Tensor) -> torch.Tensor:
+    """Signum excluding zero: sgn_e(0) = +1."""
+    return torch.where(x < 0.0, -1.0, 1.0)
+
+
 def copysign(mag: float, x: torch.Tensor) -> torch.Tensor:
     """``jnp.copysign(mag, x)`` for a scalar magnitude."""
     return torch.copysign(torch.full_like(x, mag), x)

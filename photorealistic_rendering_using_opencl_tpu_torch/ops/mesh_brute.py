@@ -1,5 +1,7 @@
 """Exhaustive mesh intersection: the Moller-Trumbore coefficient table, its
-plain PyTorch twin, and the CUDA kernel K1 (``csrc/mesh_brute.cu``).
+plain PyTorch twin, the CUDA kernel K1 (``csrc/mesh_brute.cu``), and K1's
+compute-only ablation T1 (``csrc/matmul_only.cu``) with the relevance pass
+that feeds it.
 
 Port of ``photorealistic_rendering_using_opencl_tpu/ops/mesh_brute.py``.
 With e1 = p0-p1, e2 = p2-p0, n = e1 x e2 and the ray feature
@@ -17,6 +19,11 @@ den; only a winning pair pays the division.
 tiles, each one matrix product); CUDA tensors launch K1 or raise.  Only the
 winning index leaves this module: callers re-derive exact t/u/v from it
 (ops/intersect.py: tri_reattach).
+
+``_block_relevance`` is the reference's XLA-side tile prune, which K1
+folds into itself; here it feeds only T1 (``matmul_only``), the
+microbenchmark's ablation that keeps K1's staging and dot products and
+drops everything else (tools/bench_kernel.py).
 """
 from __future__ import annotations
 
@@ -247,3 +254,131 @@ def mesh_intersect(feat, clusters, origin, direction, t_init, active=None,
         _lane_tensor(active, n, torch.bool, dev, True),
         _lane_tensor(any_hit, n, torch.bool, dev, False),
         _lane_tensor(exclude, n, torch.int32, dev, -1))
+
+
+# ---------------------------------------------------------------------------
+# T1: the compute-only ablation of K1, and the relevance pass that feeds it
+# ---------------------------------------------------------------------------
+
+def _block_relevance(clusters, origin, direction, t_init, act, nblocks,
+                     block, pad=0):
+    """[nblocks, ceil(nt/32)] relevance words: bit j of block b is set when
+    some active ray of the block's ``block`` rays enters tile j's AABB
+    closer than its t_init.  A plain port of the reference's vectorised
+    slab test; the words are int32 holding the reference's uint32 bits.
+    ``pad`` appends that many inactive rays to fill the last block."""
+    n, nt = origin.shape[0], clusters.shape[0]
+    dev = origin.device
+    safe = torch.where(direction.abs() < 1e-12,
+                       torch.where(direction >= 0.0, 1e-12, -1e-12),
+                       direction)
+    inv_d = 1.0 / safe
+    t_init = torch.broadcast_to(torch.as_tensor(t_init, dtype=torch.float32,
+                                                device=dev), (n,))
+    # axis at a time, so intermediates stay [N, nt]
+    ent = torch.full((n, nt), EPS, dtype=torch.float32, device=dev)
+    ext = torch.full((n, nt), torch.inf, dtype=torch.float32, device=dev)
+    for k in range(3):
+        lo = (clusters[None, :, k] - origin[:, k:k + 1]) * inv_d[:, k:k + 1]
+        hi = (clusters[None, :, 3 + k] - origin[:, k:k + 1]) * inv_d[:, k:k + 1]
+        ent = torch.maximum(ent, torch.minimum(lo, hi))
+        ext = torch.minimum(ext, torch.maximum(lo, hi))
+    rel = (ent <= torch.minimum(ext, t_init[:, None])) & act[:, None]
+    if pad:
+        rel = torch.cat([rel, torch.zeros((pad, nt), dtype=torch.bool,
+                                          device=dev)])
+    rel = rel.reshape(nblocks, block, nt).any(dim=1)
+    nwords = -(-nt // 32)
+    rel = torch.cat([rel, torch.zeros((nblocks, nwords * 32 - nt),
+                                      dtype=torch.bool, device=dev)], dim=1)
+    shifts = torch.arange(32, dtype=torch.int64, device=dev)
+    words = (rel.reshape(nblocks, nwords, 32).to(torch.int64)
+             << shifts).sum(dim=-1)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def relevance_words(clusters, origin, direction, t_init, active, block):
+    """``_block_relevance`` over ceil(N / block) blocks, the last one padded
+    with inactive rays -> [nblocks, ceil(nt/32)] int32."""
+    n = origin.shape[0]
+    nblocks = -(-n // block)
+    return _block_relevance(clusters, origin, direction, t_init, active,
+                            nblocks, block, pad=nblocks * block - n)
+
+
+def matmul_only_pack(origin, direction, t_init):
+    """The reference tool's transposed ray pack [FEAT, N]: the ray features
+    [o, d, d x o, 1] with t_init and the active flag (1) in rows 10 and 11;
+    rows 10-15 meet all-zero coefficient rows."""
+    p = _ray_features(origin, direction).T.contiguous()
+    p[10] = torch.broadcast_to(torch.as_tensor(t_init, dtype=torch.float32,
+                                               device=origin.device),
+                               p[10].shape)
+    p[11] = 1.0
+    return p
+
+
+def matmul_only_plain(words, pack, feat, block):
+    """T1's plain version: for each ray, the masked per-tile sum over the
+    tiles whose bit is set for its block of the column sums of
+    ``A_tile^T . p`` -> (t [N] f32, i [N] int32 zeros)."""
+    n = pack.shape[1]
+    nt = feat.shape[1] // (4 * TILE)
+    w = words.reshape(-1, -(-nt // 32)).to(torch.int64) & 0xFFFFFFFF
+    ray_block = torch.arange(n, device=pack.device) // block
+    pt = pack.T
+    t = torch.zeros((n,), dtype=torch.float32, device=pack.device)
+    for j in range(nt):
+        bit = ((w[:, j // 32] >> (j % 32)) & 1).bool()[ray_block]
+        s = torch.matmul(pt, feat[:, j * 4 * TILE:(j + 1) * 4 * TILE]).sum(1)
+        t = torch.where(bit, t + s, t)
+    return t, torch.zeros((n,), dtype=torch.int32, device=pack.device)
+
+
+class _MatmulOnlyKernel:
+    """Wrapper of ``prt_matmul_only`` (csrc/matmul_only.cu).  ``launches``
+    counts kernel launches and nothing else."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, words, pack, feat, block):
+        dev = pack.device
+        n = pack.shape[1]
+        nt = feat.shape[1] // (4 * TILE)
+        nwords = -(-nt // 32)
+        if block not in (128, 256):
+            raise ValueError(f"block {block}: the kernel takes 128 or 256")
+        if feat.shape[1] != 4 * TILE * nt:
+            raise ValueError(f"feat {tuple(feat.shape)} is not whole tiles")
+        _cuda.require(words, "words", torch.int32, (-(-n // block), nwords),
+                      dev)
+        _cuda.require(pack, "pack", torch.float32, (FEAT, n), dev)
+        _cuda.require(feat, "feat", torch.float32, (FEAT, 4 * TILE * nt), dev)
+        out_t = torch.empty((n,), dtype=torch.float32, device=dev)
+        out_i = torch.empty((n,), dtype=torch.int32, device=dev)
+        if n == 0:
+            return out_t, out_i
+        lib = _cuda.LIBRARY.get()
+        code = lib.prt_matmul_only(
+            words.data_ptr(), nwords, pack.data_ptr(), feat.data_ptr(),
+            feat.stride(0), nt, n, block, out_t.data_ptr(), out_i.data_ptr(),
+            _cuda.stream_handle(pack))
+        _cuda.check(code, "prt_matmul_only")
+        self.launches += 1
+        return out_t, out_i
+
+
+matmul_only_kernel = _MatmulOnlyKernel()
+
+
+def matmul_only(words, pack, feat, block):
+    """T1 -> (t [N], i [N] zeros): ``matmul_only_plain`` for CPU tensors,
+    the kernel for CUDA tensors (no fallback).  ``words`` from
+    ``relevance_words`` at the same ``block``."""
+    if pack.device.type == "cpu":
+        return matmul_only_plain(words, pack, feat, block)
+    if pack.device.type != "cuda":
+        raise ValueError(f"matmul_only: unsupported device {pack.device}")
+    return matmul_only_kernel(words.contiguous(), pack.contiguous(),
+                              feat.contiguous(), block)

@@ -7,9 +7,9 @@ unless the caller passes ``device="cpu"`` (without a card, the default
 raises; it never falls back to the CPU).
 
 Not ported yet, and refused with ``NotImplementedError``: SDFs and boxes
-(ROADMAP M10), a global medium and environment maps (M11), meshes over
-262,144 triangles, which need the BVH walk (M12), and material families
-other than LIGHT, DIFF and COAT (M4, continued).
+(ROADMAP M10), a global medium, environment maps and volume-boundary
+materials (M11), and meshes over 262,144 triangles, which need the BVH
+walk (M12).
 """
 from __future__ import annotations
 

@@ -89,8 +89,9 @@ AU_K = (4.2223, 2.4628, 1.8063)
 PT_ETA = (2.6656, 2.1114, 1.6782)
 PT_K = (4.7023, 3.7726, 2.7284)
 
-# material families the port shades (the rest is ROADMAP M4, continued)
-PORTED_MATS = LIGHT | DIFF | COAT
+# material bits the port refuses: a volume boundary needs the medium code
+# (ROADMAP M11); every other family of the reference is shaded
+UNPORTED_MATS = VOL
 
 
 @dataclasses.dataclass(frozen=True)

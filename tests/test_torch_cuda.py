@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from photorealistic_rendering_using_opencl_tpu_torch.models import pathtracer
-from photorealistic_rendering_using_opencl_tpu_torch.ops import compaction, mesh_brute
+from photorealistic_rendering_using_opencl_tpu_torch.ops import compaction, mesh_brute, passthrough
 from photorealistic_rendering_using_opencl_tpu_torch.ops import tonemap as tm
 from photorealistic_rendering_using_opencl_tpu_torch.ops.camera_rays import default_camera
 from photorealistic_rendering_using_opencl_tpu_torch.ops.math import RAY_INF
@@ -242,3 +242,60 @@ def test_fwd_bwd_on_card_matches_cpu(cuda):
         assert torch.isfinite(got).all()
         torch.testing.assert_close(got, want, rtol=5e-4,
                                    atol=5e-4 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [128, 256])
+def test_t1_matches_plain(cuda, block):
+    """T1 against its plain version on the same relevance words: the two
+    sum in other orders, so the bound is 1e-5 of each ray's sum of absolute
+    terms; the index output is all zero."""
+    bp, (feat, clusters, _) = _tables(cuda)
+    o, d, t_init, act, _, _ = _batch("random", bp, cuda)
+    words = mesh_brute.relevance_words(clusters, o, d, t_init, act, block)
+    pack = mesh_brute.matmul_only_pack(o, d, t_init)
+    before = mesh_brute.matmul_only_kernel.launches
+    t, i = mesh_brute.matmul_only(words, pack, feat, block)
+    assert mesh_brute.matmul_only_kernel.launches == before + 1
+    want, _ = mesh_brute.matmul_only_plain(words, pack, feat, block)
+    scale, _ = mesh_brute.matmul_only_plain(words, pack.abs(), feat.abs(),
+                                            block)
+    assert not i.any() and (scale > 0).any()
+    assert float(((t - want).abs() / scale.clamp(min=1e-30)).max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_t2_copies_bitwise(cuda):
+    x = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(262144, 3)).astype(np.float32)).to(cuda)
+    a0 = passthrough.passthrough_kernel.launches
+    b0 = passthrough.passthrough_flat_kernel.launches
+    for n in (262144, 1000):  # 1000 rows: a ragged last block
+        y = passthrough.passthrough(x[:n].contiguous())
+        assert torch.equal(y, x[:n]) and y.data_ptr() != x.data_ptr()
+    flat = x.reshape(-1)
+    assert torch.equal(passthrough.passthrough_flat(flat), flat)
+    assert passthrough.passthrough_kernel.launches == a0 + 2
+    assert passthrough.passthrough_flat_kernel.launches == b0 + 1
+    with pytest.raises(ValueError, match="128"):
+        passthrough.passthrough_flat(flat[:1000])
+
+
+@pytest.mark.cuda
+def test_scan_render_on_card_matches_cpu(cuda):
+    """render's default method (trace, scan) of cornell + icosphere at 4
+    bounces, 16^2 x 2 spp, on the card against the CPU, within 1e-5;
+    K1 runs spp * (n_steps + 1) times on the card."""
+    mesh = make_icosphere(1, 0.8, (0.0, 1.0, 0.0))
+    imgs = []
+    for dev in ("cpu", cuda):
+        cfg, sc = load_scene(os.path.join(REPO, "scenes/cornell.json"),
+                             mesh_override=mesh, device=dev)
+        cfg = dataclasses.replace(cfg, max_bounces=4)
+        before = mesh_brute.mesh_brute_kernel.launches
+        img, _ = pathtracer.render(cfg, sc, default_camera(16, 16).pytree(dev),
+                                   16, 16, 2, seed=3)
+        launched = mesh_brute.mesh_brute_kernel.launches - before
+        assert launched == (2 * (4 + 1) if dev == cuda else 0)
+        imgs.append(img.cpu())
+    torch.testing.assert_close(imgs[1], imgs[0], rtol=1e-5, atol=1e-5)

@@ -1,6 +1,7 @@
 """Inverse rendering through the port's diff/inverse.py, against the JAX
-package's ``fit_scene(method="regen_scan")`` and against the goal of the
-reference's own test: recover a wall albedo from an image of the scene."""
+package's ``fit_scene`` (methods ``regen_scan`` and ``scan``) and against
+the goal of the reference's own test: recover a wall albedo from an image
+of the scene."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -88,6 +89,23 @@ def test_fit_scene_regen_scan_recovers_albedo_and_matches_reference():
                                rtol=LOSS_RTOL)
 
 
+def test_fit_scene_scan_matches_reference():
+    """The reference's default method: every bounce of every sample, no
+    budget to calibrate."""
+    (jcfg, jwrong, jcam, jtarget), (cfg, sc, cam) = _scenes()
+    target = torch.from_numpy(np.array(jtarget))
+    res = fit_scene(cfg, sc, cam, W, H, 4, target, steps=3, lr=0.1,
+                    param_leaves=("color",))
+    j_res = j_fit_scene(jcfg, jwrong, jcam, W, H, 4, jtarget, steps=3, lr=0.1,
+                        param_leaves=("color",))
+    assert torch.isfinite(res.losses).all()
+    np.testing.assert_allclose(res.losses.numpy(), np.asarray(j_res.losses),
+                               rtol=LOSS_RTOL)
+    np.testing.assert_allclose(res.scene.color.numpy(),
+                               np.asarray(j_res.scene.color), rtol=1e-4,
+                               atol=1e-6)
+
+
 def test_loss_fn_matches_image_loss_and_reference():
     (jcfg, jwrong, jcam, jtarget), (cfg, sc, cam) = _scenes()
     target = torch.from_numpy(np.array(jtarget))
@@ -103,7 +121,7 @@ def test_loss_fn_matches_image_loss_and_reference():
 
 
 @pytest.mark.parametrize("method, err, match", [
-    ("scan", NotImplementedError, "M9"), ("while", NotImplementedError, "M9"),
+    ("while", ValueError, "differentiable"),
     ("regen", ValueError, "differentiable")])
 def test_fit_scene_refuses_unported_methods(method, err, match):
     _, (cfg, sc, cam) = _scenes()

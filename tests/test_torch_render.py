@@ -88,8 +88,7 @@ def test_library_recipe_writes_png(tmp_path):
     assert out.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n"
 
 
-@pytest.mark.parametrize("method, item", [("scan", "M9"), ("while", "M9"),
-                                          ("bdpt", "M13")])
+@pytest.mark.parametrize("method, item", [("bdpt", "M13")])
 def test_unported_methods_raise(method, item):
     cfg, sc = load_scene("scenes/cornell_simple.json", device="cpu")
     with pytest.raises(NotImplementedError, match=item):

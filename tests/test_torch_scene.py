@@ -107,7 +107,7 @@ def test_scene_from_numpy_round_trips():
 @pytest.mark.parametrize("doc_patch, item", [
     ({"sdfs": [{"type": 4, "params": [0.5]}]}, "M10"),
     ({"boxes": [{"pos": [0, 0, 0]}]}, "M10"),
-    ({"spheres": [{"radius": 0.3, "material": {"type": 3}}]}, "M4"),
+    ({"spheres": [{"radius": 0.3, "material": {"type": 5}}]}, "M11"),
 ])
 def test_unported_features_raise(doc_patch, item):
     import json
