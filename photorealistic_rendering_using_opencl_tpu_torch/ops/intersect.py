@@ -227,6 +227,29 @@ def bvh_smooth_normal(tri_normals, tri, u, v):
 # Scene-level closest hit + shadow
 # ===========================================================================
 
+def ray_sort_key(origin, direction, clusters):
+    """The reference's block-coherence sort key, bit for bit: the direction
+    octant (3 bits) above the origin's cell in a 32^3 grid over the mesh
+    bounds, ``(octant << 15) | (cx << 10) | (cy << 5) | cz`` -> [N] int32.
+    Clusters whose upper bound is at or below -1e37 (empty tiles) leave
+    the bounds.  The cell is clamped in float before the conversion: the
+    same as the reference's clip of the converted value, whose float to
+    int conversion saturates (NaN -> 0)."""
+    o, d = origin.detach(), direction.detach()
+    cl = clusters.detach()
+    lo = torch.amin(cl[:, 0:3], dim=0)
+    hi = torch.amax(torch.where(cl[:, 3:6] > -1e37, cl[:, 3:6], lo[None]),
+                    dim=0)
+    x = (o - lo) / torch.clamp(hi - lo, min=1e-6) * 31.0
+    x = torch.where(torch.isnan(x), 0.0, torch.clamp(x, 0.0, 31.0))
+    cell = x.to(torch.int32)
+    octant = ((d[:, 0] < 0).to(torch.int32)
+              | ((d[:, 1] < 0).to(torch.int32) << 1)
+              | ((d[:, 2] < 0).to(torch.int32) << 2))
+    return ((octant << 15) | (cell[:, 0] << 10) | (cell[:, 1] << 5)
+            | cell[:, 2])
+
+
 def mesh_closest(cfg: SceneConfig, scene: SceneData, origin, direction,
                  t_init, any_hit=False, active=None, exclude_tri=None):
     """Mesh intersection through the brute backend.
@@ -234,15 +257,41 @@ def mesh_closest(cfg: SceneConfig, scene: SceneData, origin, direction,
     Returns (t_detached [N], tri [N], tri_verts, tri_normals), tables in
     ``tri``'s index space; tri == -1 where nothing beats ``t_init``.
     ``exclude_tri`` ([N] int32, -1 = none) removes one triangle per lane
-    (self-exclusion for rays leaving a mesh surface).  The reference's
-    TPU-only backstops (``mesh_sort_rays``, ``mesh_second_pass``) are not
-    ported: sorting is result-invariant and the second pass repairs the
-    TPU kernel's reduced-precision matmul, which K1 does not have.
+    (self-exclusion for rays leaving a mesh surface).
+
+    With ``cfg.mesh_sort_rays`` and rays for the kernel
+    (``mesh_brute.uses_kernel``), the batch goes to K1 sorted by
+    ``ray_sort_key``, so that a warp's rays need the same tiles, and the
+    outputs come back in lane order: every per-lane input is permuted, and
+    the results are bitwise the unsorted ones, since the tile prune is
+    conservative per lane.  The sort is stable (``torch.argsort`` is not by
+    default; ``jnp.argsort`` is): camera rays share one origin cell, and
+    only a stable sort keeps them in pixel order within an octant.  The
+    reference's other TPU-only backstop, ``mesh_second_pass``, is not
+    ported: it repairs the TPU kernel's reduced-precision matmul, which K1
+    does not have.
     """
     _check_ported(cfg)
+    origin_k, direction_k, t_init_k = origin, direction, t_init
+    active_k, any_hit_k, exclude_k = active, any_hit, exclude_tri
+    perm = None
+    if cfg.mesh_sort_rays and mesh_brute.uses_kernel(origin):
+        key = ray_sort_key(origin, direction, scene.bf_clusters)
+        perm = torch.sort(key, stable=True).indices
+        origin_k, direction_k = origin[perm], direction[perm]
+        t_init_k = torch.broadcast_to(torch.as_tensor(
+            t_init, dtype=torch.float32, device=origin.device),
+            key.shape)[perm]
+        active_k = None if active is None else active[perm]
+        any_hit_k = (any_hit if isinstance(any_hit, bool)
+                     else any_hit[perm])
+        exclude_k = None if exclude_tri is None else exclude_tri[perm]
     tm, tri_raw = mesh_brute.mesh_intersect(
-        scene.bf_feat, scene.bf_clusters, origin, direction, t_init,
-        active=active, any_hit=any_hit, exclude=exclude_tri)
+        scene.bf_feat, scene.bf_clusters, origin_k, direction_k, t_init_k,
+        active=active_k, any_hit=any_hit_k, exclude=exclude_k)
+    if perm is not None:
+        tm = torch.empty_like(tm).index_copy_(0, perm, tm)
+        tri_raw = torch.empty_like(tri_raw).index_copy_(0, perm, tri_raw)
     tri = _validate_winner(scene.bf_tri_verts, tri_raw, origin, direction,
                            t_init)
     return tm, tri, scene.bf_tri_verts, scene.bf_tri_normals

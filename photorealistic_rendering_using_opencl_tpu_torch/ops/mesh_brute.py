@@ -16,9 +16,9 @@ den; only a winning pair pays the division.
 
 ``mesh_intersect`` dispatches on the device of its inputs: CPU tensors run
 ``_intersect_xla``, the plain twin of the reference's XLA path (a loop over
-tiles, each one matrix product); CUDA tensors launch K1 or raise.  Only the
-winning index leaves this module: callers re-derive exact t/u/v from it
-(ops/intersect.py: tri_reattach).
+tiles, each one matrix product); CUDA tensors launch K1 or raise
+(``uses_kernel`` says which).  Only the winning index leaves this module:
+callers re-derive exact t/u/v from it (ops/intersect.py: tri_reattach).
 
 ``_block_relevance`` is the reference's XLA-side tile prune, which K1
 folds into itself; here it feeds only T1 (``matmul_only``), the
@@ -37,6 +37,9 @@ from photorealistic_rendering_using_opencl_tpu_torch.ops.math import EPS
 
 TILE = 128  # triangles per tile (and per cluster AABB)
 FEAT = 16  # ray feature width (10 used)
+# the reference's resident-table cap; above it the loader asks for the ray
+# sort (scene/loader.py: mesh_sort_rays)
+BRUTE_MAX_TRIS = 32768
 # the brute backend carries meshes up to this size; beyond it the
 # reference switches to the BVH walk, which is ROADMAP M12
 BRUTE_STREAM_MAX_TRIS = 262144
@@ -168,12 +171,17 @@ def _intersect_xla(feat, clusters, origin, direction, t_init, active,
 # CUDA kernel K1
 # ---------------------------------------------------------------------------
 
+K1_COUNTERS = 5  # the kernel's work counts, see _MeshBruteKernel
+
+
 class _MeshBruteKernel:
     """Wrapper of ``prt_mesh_brute`` (csrc/mesh_brute.cu).  ``launches``
-    counts kernel launches and nothing else.  ``counters``, an int64 [3]
-    tensor on the card, receives the launch's work counts (tested (block,
-    tile) pairs, (ray, tile) pairs tested triangle by triangle, (ray, tile)
-    slab tests); the render path passes none."""
+    counts kernel launches and nothing else.  ``counters``, an int64 [5]
+    tensor on the card, receives the launch's work counts ((warp, tile)
+    pairs a warp processed, (ray, tile) pairs whose ray needed the tile's
+    triangles, (ray, tile) slab tests, and the (warp, tile) and (ray, tile)
+    pairs of the first two run in per-thread mode); the render path passes
+    none."""
 
     def __init__(self):
         self.launches = 0
@@ -195,25 +203,38 @@ class _MeshBruteKernel:
         _cuda.require(any_hit, "any_hit", torch.bool, (n,), dev)
         _cuda.require(exclude, "exclude", torch.int32, (n,), dev)
         if counters is not None:
-            _cuda.require(counters, "counters", torch.int64, (3,), dev)
+            _cuda.require(counters, "counters", torch.int64, (K1_COUNTERS,),
+                          dev)
         out_t = torch.empty((n,), dtype=torch.float32, device=dev)
         out_tri = torch.empty((n,), dtype=torch.int32, device=dev)
         if n == 0:
             return out_t, out_tri
         lib = _cuda.LIBRARY.get()
-        code = lib.prt_mesh_brute(
-            feat.data_ptr(), feat.stride(0), nt, clusters.data_ptr(),
-            origin.data_ptr(), direction.data_ptr(), t_init.data_ptr(),
-            active.data_ptr(), any_hit.data_ptr(), exclude.data_ptr(), n,
-            out_t.data_ptr(), out_tri.data_ptr(),
-            None if counters is None else counters.data_ptr(),
-            _cuda.stream_handle(origin))
+        # the launch (and the shared-memory opt-in of large tables) goes to
+        # the current device: make it the tensors'
+        with torch.cuda.device(dev):
+            code = lib.prt_mesh_brute(
+                feat.data_ptr(), feat.stride(0), nt, clusters.data_ptr(),
+                origin.data_ptr(), direction.data_ptr(), t_init.data_ptr(),
+                active.data_ptr(), any_hit.data_ptr(), exclude.data_ptr(), n,
+                out_t.data_ptr(), out_tri.data_ptr(),
+                None if counters is None else counters.data_ptr(),
+                _cuda.stream_handle(origin))
         _cuda.check(code, "prt_mesh_brute")
         self.launches += 1
         return out_t, out_tri
 
 
 mesh_brute_kernel = _MeshBruteKernel()
+
+
+def uses_kernel(x: torch.Tensor) -> bool:
+    """True when ``mesh_intersect`` launches K1 for tensors on ``x``'s
+    device; callers gate what only the kernel needs (the ray sort of
+    ``intersect.mesh_closest``) on it, as the reference gates its on
+    ``uses_pallas()``.  The twin on the CPU scans every tile per lane, so
+    lane order cannot change its work."""
+    return x.device.type == "cuda"
 
 
 def _lane_tensor(x, n, dtype, device, default):

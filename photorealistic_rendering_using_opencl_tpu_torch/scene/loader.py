@@ -234,6 +234,11 @@ def build_scene(doc: dict, models_dir: str | None = None,
         active_mats=int(active_mats),
         alpha_testing=alpha_testing,
         mesh_accel="brute",
+        # the reference's rule: sort rays for K1 above BRUTE_MAX_TRIS
+        # triangles.  Keyed on the padded count (ROADMAP F3); the threshold
+        # is a multiple of TILE, so the unpadded count gives the same answer
+        mesh_sort_rays=(brute is not None and brute.tri_verts.shape[0]
+                        > mesh_brute.BRUTE_MAX_TRIS),
     )
     check_ported(cfg)
 

@@ -146,10 +146,15 @@ class SceneConfig:
     # skip-link walk, which the port does not have yet (ROADMAP M12).
     mesh_accel: str = "brute"
 
-    # Kept for field parity with the reference and IGNORED by the port: in
-    # the JAX package both are backstops of the TPU kernel only (gated on
-    # ``mesh_brute.uses_pallas()``), and ray sorting is result-invariant.
+    # Sort the merged batch before K1 so that a warp's rays need the same
+    # tiles (ops/intersect.py: ray_sort_key), result-invariant; only where
+    # the kernel runs (``mesh_brute.uses_kernel``), as the reference sorts
+    # only for its TPU kernel.  The loader sets it above BRUTE_MAX_TRIS
+    # triangles, as the reference's does.
     mesh_sort_rays: bool = False
+    # Kept for field parity with the reference and IGNORED by the port: a
+    # backstop of the TPU kernel's reduced-precision matmul, which K1 does
+    # not have.
     mesh_second_pass: bool = False
 
     # gradients w.r.t. the mesh vertex/normal tables (forward: no effect)

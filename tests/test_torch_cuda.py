@@ -17,6 +17,7 @@ import torch
 
 from photorealistic_rendering_using_opencl_tpu_torch.models import pathtracer
 from photorealistic_rendering_using_opencl_tpu_torch.ops import compaction, mesh_brute, passthrough
+from photorealistic_rendering_using_opencl_tpu_torch.ops.intersect import ray_sort_key
 from photorealistic_rendering_using_opencl_tpu_torch.ops import tonemap as tm
 from photorealistic_rendering_using_opencl_tpu_torch.ops.camera_rays import default_camera
 from photorealistic_rendering_using_opencl_tpu_torch.ops.math import RAY_INF
@@ -73,19 +74,14 @@ def _batch(pop, bp, dev):
     return [torch.from_numpy(x).to(dev) for x in (o, d, t_init, act, anyh, ex)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("pop", ["random", "camera", "surface"])
-def test_k1_matches_twin(cuda, pop):
-    bp, (feat, clusters, tri_verts) = _tables(cuda)
-    o, d, t_init, act, anyh, ex = _batch(pop, bp, cuda)
-    before = mesh_brute.mesh_brute_kernel.launches
-    t, tri = mesh_brute.mesh_intersect(feat, clusters, o, d, t_init,
-                                       active=act, any_hit=anyh, exclude=ex)
-    assert mesh_brute.mesh_brute_kernel.launches == before + 1
+def _assert_like_twin(feat, clusters, o, d, t_init, act, anyh, ex, t, tri):
+    """K1's outputs against the twin's on the same lanes: closest winners
+    and occlusion flags equal (the 1e-5-per-ray flip limit is 0 at these
+    sizes), inactive lanes (t_init, -1), any-hit lanes t_init, t of the
+    closest hits within 1e-5."""
     tt, ttri = mesh_brute._intersect_xla(feat, clusters, o, d, t_init, act,
                                          exclude=ex)
     closest, anyhit = act & ~anyh, act & anyh
-    # winner / occlusion flips: the 1e-5-per-ray limit is 0 at 600 rays
     assert torch.equal(tri[closest], ttri[closest])
     assert torch.equal(tri[anyhit] >= 0, ttri[anyhit] >= 0)
     assert (tri[~act] == -1).all() and torch.equal(t[~act], t_init[~act])
@@ -93,6 +89,153 @@ def test_k1_matches_twin(cuda, pop):
     hit = closest & (tri >= 0)
     assert hit.any()
     torch.testing.assert_close(t[hit], tt[hit], rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["unsorted", "sorted"])
+@pytest.mark.parametrize("pop", ["random", "camera", "surface"])
+def test_k1_matches_twin(cuda, pop, order):
+    """K1 against its twin, on the lanes in their order and sorted by the
+    reference's key; the sorted batch's outputs, put back in lane order,
+    are the unsorted batch's bit for bit."""
+    bp, (feat, clusters, _) = _tables(cuda)
+    lanes = _batch(pop, bp, cuda)
+    t0, tri0 = mesh_brute.mesh_intersect(feat, clusters, *lanes[:3],
+                                         active=lanes[3], any_hit=lanes[4],
+                                         exclude=lanes[5])
+    perm = torch.arange(N, device=cuda)
+    if order == "sorted":
+        perm = torch.sort(ray_sort_key(lanes[0], lanes[1], clusters),
+                          stable=True).indices
+        assert not torch.equal(perm, torch.arange(N, device=cuda))
+    o, d, t_init, act, anyh, ex = [x[perm] for x in lanes]
+    before = mesh_brute.mesh_brute_kernel.launches
+    t, tri = mesh_brute.mesh_intersect(feat, clusters, o, d, t_init,
+                                       active=act, any_hit=anyh, exclude=ex)
+    assert mesh_brute.mesh_brute_kernel.launches == before + 1
+    _assert_like_twin(feat, clusters, o, d, t_init, act, anyh, ex, t, tri)
+    assert torch.equal(t, t0[perm]) and torch.equal(tri, tri0[perm])
+
+
+def _tie_tables():
+    """Three squares in planes z = 1 (x in [0, 2], [4, 6], [8, 10]), each
+    split along its diagonal into two triangles: the first pair at indices
+    5 and 130 (two tiles), the second at 60 and 61 (one tile, neighbouring
+    lanes), the third at 3 and 35 (one tile, one lane's two slots).  A
+    vertical ray through a diagonal's midpoint hits both triangles of its
+    pair at exactly t = 1 (every coefficient and product is exact), so only
+    the tie rule decides; the other slots are degenerate."""
+    tv = np.zeros((256, 3, 3), np.float32)
+    for x0, (a, b) in zip((0.0, 4.0, 8.0), ((5, 130), (60, 61), (3, 35))):
+        p = np.array([[x0, 0, 1], [x0 + 2, 0, 1], [x0 + 2, 2, 1],
+                      [x0, 2, 1]], np.float32)
+        tv[a] = p[[0, 1, 2]]
+        tv[b] = p[[0, 2, 3]]
+    return mesh_brute.pack_brute(tv, np.zeros_like(tv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [32, 7])
+def test_k1_ties_go_to_the_lower_index(cuda, lanes):
+    """``lanes`` lanes of each warp shoot at a square, the others away from
+    every square: with all 32 the warps run the squares' tiles in
+    per-thread mode, with 7 in spread mode (the shuffle reduction)."""
+    bp = _tie_tables()
+    feat, clusters = (torch.from_numpy(x).to(cuda) for x in bp[:2])
+    o = np.repeat(np.array([[1, 1, 0], [5, 1, 0], [9, 1, 0]], np.float32),
+                  64, axis=0)  # two warps a square
+    o[1::2, 2] = -1.0  # half of them from farther away: same t + 1
+    up = np.arange(o.shape[0]) % 32 < lanes
+    d = np.where(up[:, None], np.float32([0, 0, 1]), np.float32([0, 0, -1]))
+    o, d = torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda)
+    up = torch.from_numpy(up).to(cuda)
+    n = o.shape[0]
+    t_init = torch.full((n,), 20.0, device=cuda)
+    act = torch.ones(n, dtype=torch.bool, device=cuda)
+    no = torch.zeros(n, dtype=torch.bool, device=cuda)
+    ex = torch.full((n,), -1, dtype=torch.int32, device=cuda)
+    counters = torch.zeros(mesh_brute.K1_COUNTERS, dtype=torch.int64,
+                           device=cuda)
+    t, tri = mesh_brute.mesh_brute_kernel(feat, clusters, o, d, t_init, act,
+                                          no, ex, counters=counters)
+    tt, ttri = mesh_brute._intersect_xla(feat, clusters, o, d, t_init, act)
+    want = torch.tensor([5, 60, 3], dtype=torch.int32,
+                        device=cuda).repeat_interleave(64)
+    want = torch.where(up, want, -1)
+    assert torch.equal(ttri, want) and torch.equal(tri, want)
+    assert torch.equal(t, tt)
+    assert set(t[up].cpu().tolist()) == {1.0, 2.0}
+    assert bool((t[~up] == 20.0).all())
+    warp_tiles, _, _, pt_warp_tiles, _ = counters.tolist()
+    assert warp_tiles > 0
+    assert pt_warp_tiles == (warp_tiles if lanes == 32 else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 7, 31, 32])
+def test_k1_warp_occupancy(cuda, k):
+    """Warps in which exactly k lanes need the tiles on their path (k
+    copies of one ray a warp, the other lanes active but far from the mesh
+    and pointing away), so both sides of the popcount switch run, against
+    the twin: the kernel runs a tile per thread only when all 32 lanes of
+    the warp need it (PER_THREAD_FROM in csrc/mesh_brute.cu), else spread
+    across the warp."""
+    bp, (feat, clusters, _) = _tables(cuda)
+    warps = 16
+    r = np.random.default_rng(k)
+    o = r.normal(size=(warps, 3)).astype(np.float32)
+    o = 2.0 * o / np.linalg.norm(o, axis=1, keepdims=True)
+    d = (np.array([0.1, -0.2, 0.3], np.float32)  # at the icosphere
+         + r.uniform(-0.3, 0.3, (warps, 3)).astype(np.float32) - o)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = torch.from_numpy(o).to(cuda), torch.from_numpy(d).to(cuda)
+    idx = torch.arange(warps * 32, device=cuda)
+    lane, warp = idx % 32, idx // 32
+    need = lane < k
+    o_k = torch.where(need[:, None], o[warp], torch.tensor(
+        [50.0, 50.0, 50.0], device=cuda))
+    d_k = torch.where(need[:, None], d[warp], torch.tensor(
+        [1.0, 0.0, 0.0], device=cuda))
+    n = idx.shape[0]
+    anyh = (warp % 2 == 1)  # every other warp any-hit, capped
+    t_init = torch.where(anyh, 1.5, RAY_INF).to(torch.float32)
+    act = torch.ones(n, dtype=torch.bool, device=cuda)
+    ex = torch.full((n,), -1, dtype=torch.int32, device=cuda)
+    counters = torch.zeros(mesh_brute.K1_COUNTERS, dtype=torch.int64,
+                           device=cuda)
+    t, tri = mesh_brute.mesh_brute_kernel(feat, clusters, o_k, d_k, t_init,
+                                          act, anyh, ex, counters=counters)
+    _assert_like_twin(feat, clusters, o_k, d_k, t_init, act, anyh, ex, t, tri)
+    warp_tiles, ray_tiles, _, pt_warp_tiles, pt_ray_tiles = counters.tolist()
+    assert warp_tiles > 0
+    assert ray_tiles == k * warp_tiles  # k lanes need each tile processed
+    assert pt_warp_tiles == (warp_tiles if k == 32 else 0)
+    assert pt_ray_tiles == k * pt_warp_tiles
+
+
+@pytest.mark.cuda
+def test_k1_large_table_matches_twin(cuda):
+    """A table of 1,700 tiles (217,600 small random triangles, in grid-cell
+    order), whose tile boxes take 54,400 B of shared memory a block: above
+    the 48 KB a launch gets without opting in.  Two launches against the
+    twin."""
+    r = np.random.default_rng(17)
+    n_tri = 1700 * mesh_brute.TILE
+    c = r.uniform(-1, 1, (n_tri, 1, 3)).astype(np.float32)
+    tv = (c + 0.03 * r.normal(size=(n_tri, 3, 3))).astype(np.float32)
+    cell = np.floor((c[:, 0] + 1) * 6).astype(np.int64)
+    tv = tv[np.lexsort((cell[:, 2], cell[:, 1], cell[:, 0]))]
+    bp = mesh_brute.pack_brute(tv, np.zeros_like(tv))
+    feat, clusters = (torch.from_numpy(x).to(cuda) for x in bp[:2])
+    assert clusters.shape[0] * 32 > 48 * 1024
+    lanes = _batch("random", bp, cuda)
+    before = mesh_brute.mesh_brute_kernel.launches
+    for _ in range(2):
+        t, tri = mesh_brute.mesh_intersect(feat, clusters, *lanes[:3],
+                                           active=lanes[3], any_hit=lanes[4],
+                                           exclude=lanes[5])
+        _assert_like_twin(feat, clusters, *lanes, t, tri)
+    assert mesh_brute.mesh_brute_kernel.launches == before + 2
 
 
 @pytest.mark.cuda
@@ -279,6 +422,19 @@ def test_t2_copies_bitwise(cuda):
     assert passthrough.passthrough_flat_kernel.launches == b0 + 1
     with pytest.raises(ValueError, match="128"):
         passthrough.passthrough_flat(flat[:1000])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [128 * 12345, 128 * 50000])
+def test_t2b_copies_bitwise(cuda, n):
+    """T2b against x.clone(), bitwise, where the grid's last vectors are
+    ragged (1,580,160 floats) and where the grid-stride loop goes round
+    more than once (6,400,000 floats, past the grid's cap on an H100)."""
+    x = torch.from_numpy(np.random.default_rng(n).normal(size=n).astype(
+        np.float32)).to(cuda)
+    x[::977] = float("nan")
+    y = passthrough.passthrough_flat(x)
+    assert torch.equal(y.view(torch.int32), x.clone().view(torch.int32))
 
 
 @pytest.mark.cuda

@@ -35,8 +35,8 @@ SLICE_LEAVES = (
     "obj_color", "obj_eta", "obj_k", "obj_roughness", "obj_mat_type",
     "obj_lobes", "obj_dist", "phase_g",
 )
-# ignored by the port (TPU-kernel backstops in the reference)
-IGNORED_CFG = ("mesh_sort_rays", "mesh_second_pass")
+# ignored by the port (a TPU-kernel backstop in the reference)
+IGNORED_CFG = ("mesh_second_pass",)
 
 CASES = {
     "cornell_simple": ("scenes/cornell_simple.json", None),
