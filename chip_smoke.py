@@ -26,7 +26,10 @@ order, none of them optional and none wrapped in a fallback:
      work; and K1 on both render batches with their warps launched in a
      random grid order.
   4. K2 (csrc/tonemap.cu) against its plain twin: a seeded 512^2 HDR image,
-     vignette on/off, brightness 1.0/1.7.
+     the edge set (K2_EDGES on images with sides of 1, 3, 33 and 47) and a
+     16-byte misaligned view, vignette on/off, brightness 1.0/1.7: NaN in
+     the same channels, the rest within K2_ATOL; K2's time warm and with
+     the L2 flushed before each launch.
   5. Anchors: the cornell_simple, mesh_icosphere and cornell_hi_bvh configs
      of tests/golden_tool.py rendered by the port on the card against the
      stored goldens (rendered by the JAX package on the CPU).
@@ -57,7 +60,9 @@ order, none of them optional and none wrapped in a fallback:
      the K1 microbenchmark (tools/bench_kernel.py) as a user runs it.
  11. T2a / T2b (csrc/passthrough.cu) bitwise against x.clone() on
      262,144 x 3 floats, each timed against x.clone() in turns inside one
-     profiler window; then the barrier probe (tools/barrier_test.py):
+     profiler window, warm and with the L2 flushed before each call; T2a
+     bitwise on a ragged N at each float offset; then the barrier probe
+     (tools/barrier_test.py):
      bounce_step on cornell_simple at 262,144 lanes with 0, 1 or 2 extra
      copies in shadow_visible.
  12. render(method="scan") and (method="while") of cornell_hi at 512^2 x 8
@@ -89,6 +94,13 @@ runs phases 1-3, then builds csrc/mesh_brute.cu once for each K1
 configuration of K1_SWEEP (its PRT_K1_* macros) and times each on phase
 3's populations, held bitwise against the kernel library's build; no
 result line.
+
+    python3 chip_smoke.py --kernel-times [--port-root DIR]
+
+runs phases 1-2 and only the times of K2, T2a and T2b (phases 4 and 11,
+warm and L2-flushed) on the port in DIR (a checkout of another commit;
+this one's by default), as one JSON line; no result line.  Two commits
+compare in one call: run it for each, in turns.
 """
 from __future__ import annotations
 
@@ -121,6 +133,16 @@ FLIP_LIMIT = 1e-5  # winner / occlusion disagreements per ray
 K1_T_RTOL = 1e-5
 T_CANCEL = 4e-7  # ~3.4 float32 ulps at 1: t*den's cancellation, see k1_compare
 K2_ATOL = 1e-6
+# K2's edge set: non-finite, negative, zero, tiny and huge radiance (at
+# 1e20 the curve overflows to NaN), written over seeded channels of images
+# with every side of 1, 3, 33 and 47 pixels; tests/test_torch_tonemap.py
+# and tests/test_torch_cuda.py use it too
+K2_EDGES = (np.nan, np.inf, -np.inf, -1.0, -1e4, -1e-8, 0.0, 1e-8, 1e4,
+            1e20, -1e20)
+K2_EDGE_SIZES = ((1, 1), (1, 47), (3, 33), (33, 3), (47, 1), (47, 33))
+# written between launches for the L2-flushed readings (the H100's L2 holds
+# 50 MB; the microsecond kernels' 3-6 MB stay in it between launches)
+L2_FLUSH_BYTES = 256 << 20
 RAYS = 262144
 FRAME = 512  # the side of the frames rendered at size (phases 12, 13, 15)
 
@@ -210,18 +232,64 @@ def bound_ms(n_bytes: float, flops: float) -> tuple[float, str]:
     return (t_mem, "bytes") if t_mem >= t_ops else (t_ops, "operations")
 
 
-def _profile(fn, reps: int):
+def k2_edge_image(h: int, w: int, seed: int) -> np.ndarray:
+    """[h, w, 3] float32: uniform(0, 3) radiance with K2_EDGES, cycled,
+    written over a seeded third of its channels (all of them on a 1x1)."""
+    rng = np.random.default_rng(seed)
+    img = rng.uniform(0.0, 3.0, (h, w, 3)).astype(np.float32)
+    flat = img.reshape(-1)
+    idx = rng.permutation(flat.size)[:max(len(K2_EDGES), flat.size // 3)]
+    flat[idx] = np.resize(np.array(K2_EDGES, np.float32), idx.size)
+    return img
+
+
+def k2_compare(got, want) -> tuple[int, float]:
+    """K2 against its plain version -> (channels where exactly one of the
+    two is NaN, max abs difference over the channels where neither is)."""
+    import torch
+    got_nan, want_nan = torch.isnan(got), torch.isnan(want)
+    both = ~(got_nan | want_nan)
+    diff = float((got - want)[both].abs().max()) if bool(both.any()) else 0.0
+    return int((got_nan != want_nan).sum()), diff
+
+
+def l2_flush(dev):
+    """A call that writes L2_FLUSH_BYTES of device memory (one fill kernel),
+    so that the next launch finds none of its data in the L2."""
+    import torch
+    scratch = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                          device=dev)
+    return lambda: scratch.fill_(1.0)
+
+
+def _profile(fn, reps: int, flush=None):
     """torch.profiler's rows (CUDA activity) of ``reps`` calls of ``fn()``,
-    after one warm-up call: the rows with device time."""
+    after one warm-up call: the rows with device time.  With ``flush``
+    (``l2_flush``), each call follows a ``flush()``, whose rows are left
+    out by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    skip = record_names(flush) if flush else set()
     fn()  # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if flush:
+                flush()
             fn()
         torch.cuda.synchronize()
-    return [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    return [e for e in prof.key_averages()
+            if e.self_device_time_total > 0 and e.key not in skip]
+
+
+def record_names(fn) -> set:
+    """The names of the device records calls of ``fn()`` make (ten calls a
+    window, up to five windows: a window may keep none of the records)."""
+    for _ in range(5):
+        names = {e.key for e in _profile(fn, 10)}
+        if names:
+            return names
+    fail("record_names: five profiler windows kept no device record")
 
 
 def device_ms(fn, reps: int) -> tuple[float, int]:
@@ -236,13 +304,14 @@ def device_ms(fn, reps: int) -> tuple[float, int]:
             sum(e.count for e in rows))
 
 
-def kernel_ms(fn, reps: int) -> tuple[float, int]:
+def kernel_ms(fn, reps: int, flush=None) -> tuple[float, int]:
     """Device milliseconds of the one kernel ``fn()`` launches, by
-    torch.profiler over ``reps`` calls: the mean over the kernel records
-    it kept -> (ms, records kept).  On the H100 the profiler has kept fewer
-    records than launches of long kernels; a mean over the records kept is
-    a launch's time only where each call is one kernel."""
-    rows = _profile(fn, reps)
+    torch.profiler over ``reps`` calls (each after ``flush()``, where
+    given): the mean over the kernel records it kept -> (ms, records
+    kept).  On the H100 the profiler has kept fewer records than launches
+    of long kernels; a mean over the records kept is a launch's time only
+    where each call is one kernel."""
+    rows = _profile(fn, reps, flush)
     n = sum(e.count for e in rows)
     return sum(e.self_device_time_total for e in rows) / max(n, 1) / 1e3, n
 
@@ -809,41 +878,82 @@ def phase_k1(dev):
 # phase 4: K2 against its twin
 # ---------------------------------------------------------------------------
 
+def k2_image(dev):
+    """Phase 4's seeded 512^2 HDR image."""
+    import torch
+    rng = np.random.default_rng(42)
+    return torch.from_numpy(rng.uniform(0.0, 3.0, (512, 512, 3))
+                            .astype(np.float32)).to(dev)
+
+
+def k2_times(tm, img, flush, reps=50):
+    """K2's device time on ``img`` (vignette on, brightness 1), by the
+    profiler: warm (back-to-back launches) and with the L2 flushed before
+    each launch; and by CUDA events around back-to-back launches."""
+    def kernel():
+        return tm.tonemap(img)
+    ms, n = kernel_ms(kernel, reps)
+    flushed_ms, flushed_n = kernel_ms(kernel, reps, flush)
+    if not n or not flushed_n:
+        fail(f"K2: the profiler kept {n} and {flushed_n} of {reps} records")
+    return dict(ms=ms, records=n, flushed_ms=flushed_ms,
+                flushed_records=flushed_n, events_ms=cuda_ms(kernel, reps))
+
+
 def phase_k2(dev):
     import torch
     from photorealistic_rendering_using_opencl_tpu_torch.ops import tonemap as tm
 
     log("[4] K2 tonemap.cu against its plain twin")
-    rng = np.random.default_rng(42)
-    img = torch.from_numpy(rng.uniform(0.0, 3.0, (512, 512, 3))
-                           .astype(np.float32)).to(dev)
+    img = k2_image(dev)
+    base = torch.from_numpy(k2_edge_image(5, 33, 533)).to(dev)
+    cases = {"512x512": img, "[5,33,3][1:], misaligned": base[1:]}
+    for h, w in K2_EDGE_SIZES:
+        cases[f"edge set {h}x{w}"] = torch.from_numpy(
+            k2_edge_image(h, w, 100 * h + w)).to(dev)
+    if base[1:].data_ptr() % 16 == 0:
+        fail("K2: the misaligned view is 16-byte aligned")
     worst = 0.0
-    for vignette in (True, False):
-        for brightness in (1.0, 1.7):
-            got = tm.tonemap(img, vignette=vignette, brightness=brightness)
-            want = tm.tonemap_plain(img, vignette=vignette,
-                                    brightness=brightness)
-            diff = float((got - want).abs().max())
-            worst = max(worst, diff)
-            log(f"  K2 vignette={vignette} brightness={brightness}: "
-                f"max abs diff {diff:.3g}")
-            if diff > K2_ATOL:
-                fail(f"K2: max abs diff {diff:.3g} > {K2_ATOL}")
-    k_ev = cuda_ms(lambda: tm.tonemap(img), 50)
-    k_ms, k_n = kernel_ms(lambda: tm.tonemap(img), 50)
+    for name, x in cases.items():
+        case_worst, nans = 0.0, 0
+        for vignette in (True, False):
+            for brightness in (1.0, 1.7):
+                got = tm.tonemap(x, vignette=vignette, brightness=brightness)
+                want = tm.tonemap_plain(x, vignette=vignette,
+                                        brightness=brightness)
+                nan_diff, diff = k2_compare(got, want)
+                case_worst = max(case_worst, diff)
+                nans += int(torch.isnan(want).sum())
+                if nan_diff or diff > K2_ATOL:
+                    fail(f"K2 {name} vignette={vignette} brightness="
+                         f"{brightness}: {nan_diff} channels NaN in only one "
+                         f"of kernel and plain; max abs diff {diff:.3g} "
+                         f"(limit {K2_ATOL})")
+        worst = max(worst, case_worst)
+        log(f"  K2 {name}, vignette on/off x brightness 1.0/1.7: max abs "
+            f"diff {case_worst:.3g}, NaN in the same {nans} channels")
+    flush = l2_flush(dev)
+    t = k2_times(tm, img, flush)
     p_ms, p_n = device_ms(lambda: tm.tonemap_plain(img), 50)
     # 12 B read and 12 B written per pixel; ~25 FP32 operations per channel
     bound, by = bound_ms(img.numel() * 4 * 2, img.numel() * 25)
-    log(f"  K2 512x512, device time: kernel {k_ms:.4f} ms (a record, over the "
-        f"{k_n} of 50 launches the profiler recorded), twin {p_ms:.4f} "
-        f"ms a call ({p_n} kernel records over 50 calls), bound {bound:.5f} "
-        f"ms ({by}); the kernel launched back to back from Python: "
-        f"{k_ev:.4f} ms per launch")
-    timed_by = (f"ms: profiler device time, mean over the {k_n} kernel records "
-                f"kept of 50 launches (one kernel a call); plain_ms: profiler "
-                f"device time of all {p_n} kernel records of 50 calls, over "
-                "50")
-    return worst, k_ms, p_ms, bound, by, timed_by
+    log(f"  K2 512x512, device time: kernel {t['ms']:.4f} ms warm, "
+        f"{t['flushed_ms']:.4f} ms with the L2 flushed (a record, over the "
+        f"{t['records']} / {t['flushed_records']} of 50 launches the "
+        f"profiler recorded), twin {p_ms:.4f} ms a call ({p_n} kernel "
+        f"records over 50 calls), bound {bound:.5f} ms ({by}): "
+        f"{bound / t['ms']:.2f} / {bound / t['flushed_ms']:.2f} of it; "
+        f"back to back from Python: {t['events_ms']:.4f} ms per launch")
+    timed_by = (f"ms: profiler device time, mean over the {t['records']} "
+                "kernel records kept of 50 back-to-back launches (one kernel "
+                "a call; the 3 MB in and out stay in the L2 between them); "
+                f"ms_l2_flushed: the same over the {t['flushed_records']} "
+                f"records kept of 50 launches, each after a "
+                f"{L2_FLUSH_BYTES >> 20} MB fill whose records are left out "
+                f"by name; plain_ms: profiler device time of all {p_n} kernel "
+                "records of 50 calls, over 50")
+    return dict(err=worst, ms=t["ms"], flushed_ms=t["flushed_ms"],
+                plain_ms=p_ms, bound=bound, by=by, timed_by=timed_by)
 
 
 # ---------------------------------------------------------------------------
@@ -1690,29 +1800,59 @@ def phase_t1(dev, b, k1_ms):
 # phase 11: T2a and T2b against x.clone(), and the barrier probe
 # ---------------------------------------------------------------------------
 
-def turns_ms(kernel, match, other, reps):
+def turns_ms(kernel, match, other, reps, flush=None):
     """Device ms a call of ``kernel`` and of ``other`` (one kernel each),
     run in turns (other, kernel, kernel, other, ...) inside one
-    torch.profiler window: the device time of kernels whose name holds
-    ``match`` is ``kernel``'s, the rest ``other``'s -> (kernel ms, other
-    ms, and the records the profiler kept of each)."""
+    torch.profiler window, each call after ``flush()`` where given: the
+    device time of kernels whose name holds ``match`` is ``kernel``'s,
+    ``flush()``'s records are left out by name, the rest is ``other``'s
+    -> (kernel ms, other ms, and the records the profiler kept of each)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    skip = record_names(flush) if flush else set()
     kernel(), other()  # warm-up
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps // 2):
-            other(), kernel(), kernel(), other()
+            for fn in (other, kernel, kernel, other):
+                if flush:
+                    flush()
+                fn()
         torch.cuda.synchronize()
     time, count = {True: 0.0, False: 0.0}, {True: 0, False: 0}
     for e in prof.key_averages():
-        if e.self_device_time_total > 0:
+        if e.self_device_time_total > 0 and e.key not in skip:
             time[match in e.key] += e.self_device_time_total
             count[match in e.key] += e.count
+    if not count[True] or not count[False]:
+        fail(f"turns_ms: the profiler kept {count[True]} records named "
+             f"'{match}' and {count[False]} others")
     # a mean over the records the profiler kept (see kernel_ms)
-    return (time[True] / max(count[True], 1) / 1e3,
-            time[False] / max(count[False], 1) / 1e3,
+    return (time[True] / count[True] / 1e3, time[False] / count[False] / 1e3,
             count[True], count[False])
+
+
+def t2_inputs(dev):
+    """Phase 11's input: the barrier probe's 262,144 x 3 floats, and T2b's
+    flat view of them."""
+    import torch
+    from photorealistic_rendering_using_opencl_tpu_torch.ops import passthrough as pt
+    x = torch.from_numpy(np.random.default_rng(31).normal(
+        size=(RAYS, 3)).astype(np.float32)).to(dev)
+    return (("T2a", pt.passthrough, x),
+            ("T2b", pt.passthrough_flat, x.reshape(-1)))
+
+
+def t2_times(fn, arg, flush, reps=200):
+    """``fn(arg)`` (a kernel named passthrough) against ``arg.clone()`` in
+    turns, warm and with the L2 flushed before every call -> the times and
+    records of each."""
+    out = {}
+    for key, fl in (("warm", None), ("flushed", flush)):
+        k_ms, c_ms, k_n, c_n = turns_ms(lambda: fn(arg), "passthrough",
+                                        arg.clone, reps, fl)
+        out[key] = dict(ms=k_ms, clone_ms=c_ms, records=[k_n, c_n])
+    return out
 
 
 def phase_t2(dev):
@@ -1721,33 +1861,48 @@ def phase_t2(dev):
     from photorealistic_rendering_using_opencl_tpu_torch.tools import barrier_test
 
     log("[11] T2a / T2b passthrough.cu against x.clone(); the barrier probe")
-    x = torch.from_numpy(np.random.default_rng(31).normal(
-        size=(RAYS, 3)).astype(np.float32)).to(dev)
+    flush = l2_flush(dev)
     out = {}
-    for name, fn, arg, match in (
-            ("T2a", pt.passthrough, x, "passthrough_rows"),
-            ("T2b", pt.passthrough_flat, x.reshape(-1), "passthrough_flat")):
+    inputs = t2_inputs(dev)
+    for name, fn, arg in inputs:
         y = fn(arg)
         torch.cuda.synchronize()
         same = torch.equal(y.view(torch.int32), arg.clone().view(torch.int32))
         if not same:
             fail(f"{name}: the copy is not bitwise equal to its input")
         # the plain version and the library call are the same call
-        k_ms, p_ms, k_n, p_n = turns_ms(lambda: fn(arg), match,
-                                        lambda: arg.clone(), 200)
+        t = t2_times(fn, arg, flush)
+        w, f = t["warm"], t["flushed"]
         bound, by = bound_ms(arg.numel() * 4 * 2, 0)
         timed_by = ("ms, plain_ms and library_ms: profiler device time in one "
                     "window, the kernel and x.clone() called 200 times each "
-                    "in turns, the mean over the kernel records kept of each "
-                    f"({k_n} and {p_n}); each call is one kernel (x.clone(): "
-                    "one device-to-device copy)")
-        out[name] = dict(err=0.0, ms=k_ms, plain_ms=p_ms, library_ms=p_ms,
-                         bound=bound, by=by, timed_by=timed_by)
+                    "in turns, the mean over the records kept of each "
+                    f"({w['records'][0]} and {w['records'][1]}); each call is "
+                    "one kernel (x.clone(): one device-to-device copy); "
+                    "ms_l2_flushed and library_ms_l2_flushed: the same in "
+                    f"another window, each call after a {L2_FLUSH_BYTES >> 20}"
+                    " MB fill whose records are left out by name (records "
+                    f"kept: {f['records'][0]} and {f['records'][1]})")
+        out[name] = dict(err=0.0, ms=w["ms"], plain_ms=w["clone_ms"],
+                         library_ms=w["clone_ms"], flushed_ms=f["ms"],
+                         library_flushed_ms=f["clone_ms"], bound=bound, by=by,
+                         timed_by=timed_by)
         log(f"  {name} {tuple(arg.shape)}: bitwise equal; device time in one "
-            f"profiler window, in turns: kernel {k_ms:.4f} ms, x.clone() "
-            f"(plain version and library call) {p_ms:.4f} ms, kernel / clone "
-            f"{k_ms / p_ms:.3f} (records kept: {k_n} and {p_n} of 200); bound "
+            f"profiler window, in turns, kernel against x.clone() (plain "
+            f"version and library call): warm {w['ms']:.5f} against "
+            f"{w['clone_ms']:.5f} ms, {w['ms'] / w['clone_ms']:.3f}x; L2 "
+            f"flushed before each call {f['ms']:.5f} against "
+            f"{f['clone_ms']:.5f} ms, {f['ms'] / f['clone_ms']:.3f}x (records "
+            f"kept {w['records']}, {f['records']} of 200 each); bound "
             f"{bound:.5f} ms ({by})")
+    # T2a on a ragged N (3N % 4 = 1) at each float offset modulo 16 bytes
+    flat, n = inputs[1][2], RAYS - 1
+    for offset in range(4):
+        v = flat[offset:offset + 3 * n].view(n, 3)
+        if not torch.equal(pt.passthrough(v).view(torch.int32),
+                           v.clone().view(torch.int32)):
+            fail(f"T2a: [{n}, 3] at float offset {offset}: not bitwise equal")
+    log(f"  T2a [{n}, 3] (3N % 4 = 1) at float offsets 0-3: bitwise equal")
 
     # the probe as a user runs it, with the counts set to 0 first
     pt.passthrough_kernel.launches = 0
@@ -2056,15 +2211,32 @@ def phase_k1_sweep(dev, pops):
              f"kernel library's: {wrong[:6]}")
 
 
+def kernel_times(dev, root):
+    """--kernel-times: K2 (phase 4's image), T2a and T2b (phase 11's
+    inputs, each in turns with x.clone()), warm and with the L2 flushed,
+    on the port found at ``root``; one JSON line."""
+    from photorealistic_rendering_using_opencl_tpu_torch.ops import tonemap as tm
+    log(f"[4, 11] kernel times of the port at {root}")
+    flush = l2_flush(dev)
+    res = {"port_root": root, "K2": k2_times(tm, k2_image(dev), flush)}
+    for name, fn, arg in t2_inputs(dev):
+        res[name] = t2_times(fn, arg, flush)
+    log("kernel times: " + json.dumps(res))
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     kernels_only = argv == ["--kernels-only"]
     sweep = argv == ["--k1-sweep"]
-    if argv and not (kernels_only or sweep):
-        fail(f"unknown arguments {argv}: none, --kernels-only or --k1-sweep")
-    if not os.path.isdir(os.path.join(REPO, PKG)):
-        fail(f"the port package {PKG}/ is not beside this script")
-    sys.path.insert(0, REPO)
+    times = argv[:1] == ["--kernel-times"] and (
+        len(argv) == 1 or (len(argv) == 3 and argv[1] == "--port-root"))
+    if argv and not (kernels_only or sweep or times):
+        fail(f"unknown arguments {argv}: none, --kernels-only, --k1-sweep "
+             "or --kernel-times [--port-root DIR]")
+    root = os.path.abspath(argv[2]) if times and len(argv) == 3 else REPO
+    if not os.path.isdir(os.path.join(root, PKG)):
+        fail(f"the port package {PKG}/ is not in {root}")
+    sys.path.insert(0, root)
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device (torch.cuda.is_available() is False)")
@@ -2088,6 +2260,11 @@ def main(argv=None) -> int:
     for line in _cuda.LIBRARY.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log("  " + line.strip())
+    if times:
+        kernel_times(dev, root)
+        log("partial run (--kernel-times: phases 1-2 and the times of K2, "
+            "T2a and T2b); no result line")
+        return 0
 
     t_start = time.perf_counter()
 
@@ -2110,7 +2287,7 @@ def main(argv=None) -> int:
             f"{time.perf_counter() - t_start:.1f} s after the build; no "
             "result line")
         return 0
-    k2_err, k2_ms, k2_plain_ms, k2_bound, k2_by, k2_timed_by = phase_k2(dev)
+    k2 = phase_k2(dev)
     phase_goldens(dev)
     done(5)
     launches, t_regen, regen_img, regen_sort = phase_slice(dev, gpu_line,
@@ -2171,10 +2348,10 @@ def main(argv=None) -> int:
          "source": f"{PKG}/csrc/tonemap.cu",
          "replaces": "photorealistic_rendering_using_opencl_tpu/ops/pallas_kernels.py:39",
          "launches": sum(k2_paths.values()), "launches_by_path": k2_paths,
-         "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms, "bound_ms": k2_bound,
-         "bound_by": k2_by, "library_ms": None,
-         "timed_by": k2_timed_by},
+         "max_abs_err": k2["err"], "ms": k2["ms"],
+         "ms_l2_flushed": k2["flushed_ms"], "plain_ms": k2["plain_ms"],
+         "bound_ms": k2["bound"], "bound_by": k2["by"], "library_ms": None,
+         "timed_by": k2["timed_by"]},
         {"name": "K3 block_scan", "route": "cuda",
          "source": f"{PKG}/csrc/block_scan.cu",
          "replaces": "photorealistic_rendering_using_opencl_tpu/ops/pallas_kernels.py:98",
@@ -2201,7 +2378,10 @@ def main(argv=None) -> int:
              "launches_by_path": {"barrier_test": k["launches"]},
              "max_abs_err": k["err"], "ms": k["ms"], "plain_ms": k["plain_ms"],
              "bound_ms": k["bound"], "bound_by": k["by"],
-             "library_ms": k["library_ms"], "timed_by": k["timed_by"]})
+             "library_ms": k["library_ms"],
+             "ms_l2_flushed": k["flushed_ms"],
+             "library_ms_l2_flushed": k["library_flushed_ms"],
+             "timed_by": k["timed_by"]})
     log("fwd+bwd: " + json.dumps({k: v for k, v in fb.items()}))
     log("scan fwd+bwd: " + json.dumps(sfb))
     log("scan / while forward: " + json.dumps(sw))

@@ -8,91 +8,87 @@
 // costs more than its copy; in an eager PyTorch chain there is no fusion to
 // break, so they measure what one more launch costs.
 //
-// Bound: memory, every byte read once and written once.  T2a: each CTA
-// copies one of the TPU kernel's [1024, 3] blocks, 3,072 contiguous floats,
-// one float a thread per step.  T2b: the TPU's [256, 128] block is no part
-// of what it computes, a copy; one CTA per such block made only 24 CTAs for
-// the 132 SMs at the barrier probe's 786,432 floats.  It launches
-// enough CTAs to fill the card, FLAT_UNROLL 16-byte vectors a thread, all
-// loads made before the stores, over a grid-stride loop: at that size
-// every vector is in flight at once.
+// Bound: memory, every byte read once and written once.  The TPU's blocks
+// are no part of what either computes, a copy, so both copy their buffer as
+// flat floats with one body: UNROLL 16-byte vectors in flight a thread, all
+// loads made before the stores, over a grid-stride loop on a grid of at
+// most the card's resident CTAs.  At the barrier probe's 786,432 floats
+// that is 384 CTAs of 128 threads, every vector in flight at once (PR 4's
+// 192 CTAs of 256 threads left some SMs twice the bytes of others, and ran
+// slower).  The vectors are aligned on the output:
+// the floats before its first 16-byte boundary (the head) and after its
+// last whole vector (the tail: 3N % 4 floats for T2a's aligned [N, 3]) are
+// copied one a thread, after the vectors.  An input whose offset differs
+// from the output's modulo 16 bytes (a view with a storage offset) is read
+// with scalar loads by the kernel's second instance.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "grid.cuh"
+
 namespace {
 
-constexpr int THREADS = 256;
-constexpr long long ROWS_BLOCK = 1024 * 3;     // T2a: a [1024, 3] block
-constexpr int FLAT_UNROLL = 4;   // T2b: float4 vectors in flight a thread
-constexpr int FLAT_BLOCKS_PER_SM = 8;  // T2b's grid cap: 2,048 threads an SM
+constexpr int THREADS = 128;
+constexpr int UNROLL = 4;  // float4 vectors in flight a thread
 
-__global__ void __launch_bounds__(THREADS)
-passthrough_rows_kernel(const float* __restrict__ x, float* __restrict__ y,
-                        long long total) {
-  const long long base = (long long)blockIdx.x * ROWS_BLOCK;
-  for (int e = threadIdx.x; e < ROWS_BLOCK; e += THREADS) {
-    const long long k = base + e;
-    if (k < total) y[k] = x[k];
-  }
+template <bool kVecLoad>
+__device__ __forceinline__ float4 load4(const float* __restrict__ x) {
+  if (kVecLoad) return *reinterpret_cast<const float4*>(x);
+  return make_float4(x[0], x[1], x[2], x[3]);
 }
 
+// y[i] = x[i] for i < n; y + head is 16-byte aligned, and so is x + head
+// where kVecLoad
+template <bool kVecLoad>
 __global__ void __launch_bounds__(THREADS)
-passthrough_flat_kernel(const float4* __restrict__ x, float4* __restrict__ y,
-                        long long total4) {
+passthrough_kernel(const float* __restrict__ x, float* __restrict__ y,
+                   long long n, int head) {
+  const long long gid = (long long)blockIdx.x * THREADS + threadIdx.x;
+  const long long n4 = (n - head) / 4;
+  const float* xv = x + head;
+  float4* yv = reinterpret_cast<float4*>(y + head);
   const long long stride = (long long)gridDim.x * THREADS;
-  long long k = (long long)blockIdx.x * THREADS + threadIdx.x;
-  for (; k + (FLAT_UNROLL - 1) * stride < total4; k += FLAT_UNROLL * stride) {
-    float4 v[FLAT_UNROLL];
+  long long k = gid;
+  for (; k + (UNROLL - 1) * stride < n4; k += UNROLL * stride) {
+    float4 v[UNROLL];
 #pragma unroll
-    for (int u = 0; u < FLAT_UNROLL; ++u) v[u] = x[k + u * stride];
+    for (int u = 0; u < UNROLL; ++u)
+      v[u] = load4<kVecLoad>(xv + 4 * (k + u * stride));
 #pragma unroll
-    for (int u = 0; u < FLAT_UNROLL; ++u) y[k + u * stride] = v[u];
+    for (int u = 0; u < UNROLL; ++u) yv[k + u * stride] = v[u];
   }
-  for (; k < total4; k += stride) y[k] = x[k];
+  for (; k < n4; k += stride) yv[k] = load4<kVecLoad>(xv + 4 * k);
+  // the head and the tail, after the vectors so as not to delay their loads
+  const long long tail = head + 4 * n4;
+  if (gid < head) y[gid] = x[gid];
+  if (gid < n - tail) y[tail + gid] = x[tail + gid];
 }
 
-// the current device's SM count, read once (0 and the error on failure)
-cudaError_t sm_count(int* sms) {
-  static int cached = 0;
-  if (!cached) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&cached, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return e;
-  }
-  *sms = cached;
-  return cudaSuccess;
+template <bool kVecLoad>
+int launch(const float* x, float* y, long long n, int head,
+           cudaStream_t stream) {
+  static int cache[prt::kMaxDevices] = {};
+  int ctas = 0;
+  const cudaError_t e =
+      prt::resident_ctas(passthrough_kernel<kVecLoad>, THREADS, cache, &ctas);
+  if (e != cudaSuccess) return (int)e;
+  const long long per_block = (long long)THREADS * UNROLL * 4;
+  long long blocks = (n + per_block - 1) / per_block;
+  if (blocks > ctas) blocks = ctas;
+  passthrough_kernel<kVecLoad><<<(unsigned)blocks, THREADS, 0, stream>>>(
+      x, y, n, head);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" {
-
-int prt_passthrough_rows(const float* x, float* y, long long n_rows,
-                         void* stream) {
-  const long long total = n_rows * 3;
-  const long long blocks = (total + ROWS_BLOCK - 1) / ROWS_BLOCK;
-  passthrough_rows_kernel<<<(unsigned)blocks, THREADS, 0,
-                            (cudaStream_t)stream>>>(x, y, total);
-  return (int)cudaGetLastError();
+// y[:n] = x[:n], n > 0 floats, both 4-byte aligned
+extern "C" int prt_passthrough(const float* x, float* y, long long n,
+                               void* stream) {
+  long long head = (16 - (uintptr_t)y % 16) % 16 / 4;
+  if (head > n) head = n;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return ((uintptr_t)x - (uintptr_t)y) % 16
+             ? launch<false>(x, y, n, (int)head, s)
+             : launch<true>(x, y, n, (int)head, s);
 }
-
-int prt_passthrough_flat(const float* x, float* y, long long n,
-                         void* stream) {
-  const long long total4 = n / 4;  // the wrapper requires n % 128 == 0
-  const long long per_block = (long long)THREADS * FLAT_UNROLL;
-  long long blocks = (total4 + per_block - 1) / per_block;
-  int sms = 0;
-  const cudaError_t e = sm_count(&sms);
-  if (e != cudaSuccess) return (int)e;
-  const long long cap = (long long)sms * FLAT_BLOCKS_PER_SM;
-  if (blocks > cap) blocks = cap;
-  passthrough_flat_kernel<<<(unsigned)blocks, THREADS, 0,
-                            (cudaStream_t)stream>>>(
-      reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(y),
-      total4);
-  return (int)cudaGetLastError();
-}
-
-}  // extern "C"

@@ -12,9 +12,9 @@ links them into one shared library, loaded with ``ctypes``:
 after the link.)
 
 The build runs at the first launch, never at import, into the package's
-``_build/`` directory (listed in .gitignore); a change to any source
-changes the hash and triggers a rebuild.  A failed build raises: there is
-no fallback for CUDA tensors.  Every C entry point returns
+``_build/`` directory (listed in .gitignore); a change to any source or
+header (``csrc/*.cuh``) changes the hash and triggers a rebuild.  A failed
+build raises: there is no fallback for CUDA tensors.  Every C entry point returns
 ``cudaGetLastError()`` after its launch; ``check`` turns a non-zero code
 into an exception.
 """
@@ -49,8 +49,7 @@ _SIGNATURES = {
     "prt_block_scan": [_c_vp, _c_vp, _c_vp, _c_ll, _c_int, _c_vp],
     "prt_matmul_only": [_c_vp, _c_int, _c_vp, _c_vp, _c_ll, _c_int, _c_ll,
                         _c_int, _c_vp, _c_vp, _c_vp],
-    "prt_passthrough_rows": [_c_vp, _c_vp, _c_ll, _c_vp],
-    "prt_passthrough_flat": [_c_vp, _c_vp, _c_ll, _c_vp],
+    "prt_passthrough": [_c_vp, _c_vp, _c_ll, _c_vp],
 }
 
 
@@ -76,7 +75,8 @@ class KernelLibrary:
 
     def _so_path(self) -> str:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in self.sources():
+        headers = glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+        for src in sorted(self.sources() + headers):
             with open(src, "rb") as fh:
                 h.update(os.path.basename(src).encode() + fh.read())
         return os.path.join(BUILD_DIR, f"libprt_kernels_{h.hexdigest()[:16]}.so")

@@ -1,13 +1,15 @@
-"""Pass-through probes: identity copies in the reference's two block
-layouts, the CUDA kernels T2a and T2b (``csrc/passthrough.cu``).
+"""Pass-through probes: identity copies in the reference's two layouts, the
+CUDA kernels T2a and T2b (``csrc/passthrough.cu``).
 
 Port of the two Pallas kernels of ``tools/pallas_barrier_test.py``:
 ``_passthrough`` (T2a, [N, 3] float32 in [1024, 3] blocks) and
 ``_passthrough_flat`` (T2b, [N] float32 viewed as [N/128, 128] rows, in
-[256, 128] blocks).  The barrier probe (``tools/barrier_test.py``) puts
-them inside ``shadow_visible`` to time one more launch in the shading
-chain.  Their plain version is ``x.clone()``: CPU tensors take it, CUDA
-tensors launch the kernel or raise.
+[256, 128] blocks).  On the card both launch one copy kernel over their
+buffer's floats; each keeps its own shape check and launch count.  The
+barrier probe (``tools/barrier_test.py``) puts them inside
+``shadow_visible`` to time one more launch in the shading chain.  Their
+plain version is ``x.clone()``: CPU tensors take it, CUDA tensors launch
+the kernel or raise.
 """
 from __future__ import annotations
 
@@ -17,11 +19,11 @@ from photorealistic_rendering_using_opencl_tpu_torch.ops import _cuda
 
 
 class _PassthroughKernel:
-    """Wrapper of one copy kernel.  ``launches`` counts kernel launches and
-    nothing else."""
+    """Wrapper of ``prt_passthrough`` for one layout.  ``launches`` counts
+    kernel launches and nothing else."""
 
-    def __init__(self, symbol: str, flat: bool):
-        self.symbol = symbol
+    def __init__(self, name: str, flat: bool):
+        self.name = name
         self.flat = flat
         self.launches = 0
 
@@ -29,29 +31,27 @@ class _PassthroughKernel:
         n = x.shape[0]
         shape = (n,) if self.flat else (n, 3)
         _cuda.require(x, "x", torch.float32, shape, x.device)
-        if self.flat and (n % 128 or x.data_ptr() % 16):
-            raise ValueError(f"{self.symbol}: needs N % 128 == 0 (N = {n}) "
-                             "and 16-byte aligned data")
+        if self.flat and n % 128:
+            raise ValueError(f"{self.name}: needs N % 128 == 0 (N = {n})")
         out = torch.empty_like(x)
         if n == 0:
             return out
-        code = getattr(_cuda.LIBRARY.get(), self.symbol)(
-            x.data_ptr(), out.data_ptr(), n, _cuda.stream_handle(x))
-        _cuda.check(code, self.symbol)
+        code = _cuda.LIBRARY.get().prt_passthrough(
+            x.data_ptr(), out.data_ptr(), x.numel(), _cuda.stream_handle(x))
+        _cuda.check(code, f"prt_passthrough ({self.name})")
         self.launches += 1
         return out
 
 
-passthrough_kernel = _PassthroughKernel("prt_passthrough_rows", flat=False)
-passthrough_flat_kernel = _PassthroughKernel("prt_passthrough_flat",
-                                             flat=True)
+passthrough_kernel = _PassthroughKernel("T2a", flat=False)
+passthrough_flat_kernel = _PassthroughKernel("T2b", flat=True)
 
 
 def _dispatch(kernel, x):
     if x.device.type == "cpu":
         return x.clone()
     if x.device.type != "cuda":
-        raise ValueError(f"{kernel.symbol}: unsupported device {x.device}")
+        raise ValueError(f"{kernel.name}: unsupported device {x.device}")
     return kernel(x.contiguous())
 
 

@@ -4,7 +4,9 @@ Port of ``photorealistic_rendering_using_opencl_tpu/ops/tonemap.py`` (the
 plain version) and of the fused Pallas kernel
 ``ops/pallas_kernels.py:_tonemap_kernel`` as the CUDA kernel K2
 (``csrc/tonemap.cu``).  ``tonemap`` runs the plain version on CPU tensors
-and launches K2 on CUDA tensors, with no fallback.
+and launches K2 on CUDA tensors, with no fallback.  Both give NaN where the
+reference does: for a NaN or infinite pixel, and for one large enough that
+the curve overflows.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from photorealistic_rendering_using_opencl_tpu_torch.ops.math import smoothstep
 
 _W = 1.2
 _T2 = 7.5
+_INT_MAX = 2**31 - 1
 
 
 def filmic_reinhard_curve(x):
@@ -58,6 +61,9 @@ class _TonemapKernel:
             raise ValueError(f"tonemap: expected [H,W,3], got {tuple(img.shape)}")
         h, w = img.shape[0], img.shape[1]
         _cuda.require(img, "img", torch.float32, (h, w, 3), img.device)
+        if 3 * h * w > _INT_MAX:
+            raise ValueError(f"tonemap: {h}x{w} pixels exceed the kernel's "
+                             "32-bit float index (3*H*W <= 2^31 - 1)")
         out = torch.empty_like(img)
         if h * w == 0:
             return out

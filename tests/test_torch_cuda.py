@@ -262,6 +262,52 @@ def test_k2_matches_plain(cuda, vignette):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
 
 
+def _k2_large(h, w, seed, cs):
+    """uniform(0, 3) radiance with 10,000 seeded channels from the edge set."""
+    rng = np.random.default_rng(seed)
+    img = rng.uniform(0.0, 3.0, (h, w, 3)).astype(np.float32)
+    img.reshape(-1)[rng.integers(0, 3 * h * w, 10000)] = np.resize(
+        np.array(cs.K2_EDGES, np.float32), 10000)
+    return img
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["edge set", "ragged", "misaligned",
+                                  "1920x1080", "4096x4096"])
+def test_k2_edges_and_sizes_match_plain(cuda, case):
+    """K2 against its plain version on chip_smoke's edge set (NaN, +-inf,
+    negatives, 0, 1e-8, 1e4, 1e20 on sides of 1, 3, 33 and 47), pixel
+    counts that are not a multiple of 4, a view 99 floats into its storage
+    (not 16-byte aligned), 1920x1080, and 4096x4096 (the grid-stride loop
+    goes round more than once): NaN in the same channels, the rest within
+    1e-6, at vignette on/off and brightness 1.0/1.7, one launch a call."""
+    cs = _chip_smoke()
+    if case == "edge set":
+        imgs = [torch.from_numpy(cs.k2_edge_image(h, w, 100 * h + w))
+                for h, w in cs.K2_EDGE_SIZES]
+    elif case == "ragged":  # h * w % 4 = 1, 2, 3, 1, 3
+        imgs = [torch.from_numpy(cs.k2_edge_image(h, w, h + w))
+                for h, w in ((5, 33), (1, 2), (3, 5), (7, 7), (1, 3))]
+    elif case == "misaligned":
+        imgs = [torch.from_numpy(cs.k2_edge_image(5, 33, 533)).to(cuda)[1:]]
+        assert imgs[0].data_ptr() % 16 and imgs[0].is_contiguous()
+    else:
+        w, h = map(int, case.split("x"))
+        imgs = [torch.from_numpy(_k2_large(h, w, w, cs))]
+    for img in imgs:
+        img = img.to(cuda)
+        for vignette in (True, False):
+            for brightness in (1.0, 1.7):
+                before = tm.tonemap_kernel.launches
+                got = tm.tonemap(img, vignette=vignette, brightness=brightness)
+                assert tm.tonemap_kernel.launches == before + 1
+                want = tm.tonemap_plain(img, vignette=vignette,
+                                        brightness=brightness)
+                assert bool(torch.isnan(want).any())
+                assert cs.k2_compare(got, want)[0] == 0
+                assert cs.k2_compare(got, want)[1] <= 1e-6
+
+
 @pytest.mark.cuda
 def test_render_on_card_matches_golden(cuda):
     """The mesh_icosphere golden (tests/golden_tool.py), rendered through K1
@@ -422,6 +468,29 @@ def test_t2_copies_bitwise(cuda):
     assert passthrough.passthrough_flat_kernel.launches == b0 + 1
     with pytest.raises(ValueError, match="128"):
         passthrough.passthrough_flat(flat[:1000])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 5, 1000, 262145, 2_000_000])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_t2a_copies_bitwise(cuda, n, offset):
+    """T2a against x.clone(), bitwise with NaN payloads, where 3N % 4 != 0
+    (N = 1, 5, 262,145), past the grid's cap (2,000,000 rows: the
+    grid-stride loop goes round twice on an H100), and from an [N, 3] view
+    whose data starts one float past a 16-byte boundary; one launch."""
+    rng = np.random.default_rng(n + offset)
+    host = rng.normal(size=3 * n + 1).astype(np.float32)
+    payloads = np.array([0x7FC00000, 0x7F800001, 0x7FFFFFFF, 0xFFC00001],
+                        np.uint32)
+    host.view(np.uint32)[::7] = np.resize(payloads, host[::7].size)
+    flat = torch.from_numpy(host).to(cuda)
+    x = flat[offset:offset + 3 * n].view(n, 3)
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
+    before = passthrough.passthrough_kernel.launches
+    y = passthrough.passthrough(x)
+    assert passthrough.passthrough_kernel.launches == before + 1
+    assert y.data_ptr() != x.data_ptr()
+    assert torch.equal(y.view(torch.int32), x.clone().view(torch.int32))
 
 
 @pytest.mark.cuda
