@@ -28,18 +28,25 @@ order, none of them optional and none wrapped in a fallback:
   4. K2 (csrc/tonemap.cu) against its plain twin: a seeded 512^2 HDR image,
      the edge set (K2_EDGES on images with sides of 1, 3, 33 and 47) and a
      16-byte misaligned view, vignette on/off, brightness 1.0/1.7: NaN in
-     the same channels, the rest within K2_ATOL; K2's time warm and with
-     the L2 flushed before each launch.
+     the same channels, the rest within K2_ATOL; the same images launched
+     in bands of 4,100 pixels (bands that start mid-row); a 26755^2 image
+     (3*H*W > 2^31 - 1, two bands) against the plain version on rows at
+     its ends and around the band boundary; K2's time warm and with the L2
+     flushed before each launch.
   5. Anchors: the cornell_simple, mesh_icosphere and cornell_hi_bvh configs
      of tests/golden_tool.py rendered by the port on the card against the
      stored goldens (rendered by the JAX package on the CPU).
   6. The forward slice at size: cornell_hi.json, 512^2 x 8 spp, seed 0,
      render(method="regen") -> tonemap -> write_png, with launch counts;
      then the frame with the ray sort off and on, in turns, bitwise equal.
-  7. K3 (csrc/block_scan.cu) against its plain version: 262,144 flags (a
-     512^2 frame's lanes) and ragged sizes at five densities, 0 mismatches
-     allowed; compact_indices driven once on a frame's lanes; times of the
-     kernel, the plain version and torch.cumsum.
+  7. K3 (csrc/block_scan.cu) against its plain version: every block from
+     32 to 1024, 262,144 flags (a 512^2 frame's lanes) and ragged sizes at
+     five densities, an int32 wrap-around and a misaligned view, 0
+     mismatches allowed; compact_indices driven once on a frame's lanes;
+     K3 at 262,144 and 16,777,216 flags (a 4096^2 frame's), warm and with
+     the L2 flushed, in turns with x.clone() of the flags and with the
+     per-block torch.cumsum; the plain version, and the whole
+     exclusive_prefix_sum against a torch.cumsum of the whole array.
   8. The fwd+bwd slice at size: cornell_hi.json, 512^2 x 4 spp, seed 3,
      value-and-grad of mean(image) through render(method="regen_scan") over
      every float leaf of the scene and the camera, with the calibrated
@@ -54,10 +61,12 @@ order, none of them optional and none wrapped in a fallback:
      128^2 x 4 spp on cornell_hi with the red wall's colour perturbed.
  10. T1 (csrc/matmul_only.cu, K1's compute-only ablation) against its plain
      version on the cornell_hi tables and phase 3's random population at
-     128 rays a block, within 1e-5 of each ray's sum of absolute terms; the
-     (ray, tile) pairs it adds against those K1 tests; times of T1, its
-     plain version and the relevance pass, and K1 / T1 on that batch; then
-     the K1 microbenchmark (tools/bench_kernel.py) as a user runs it.
+     128 and 256 rays a block, within 1e-5 of each ray's sum of absolute
+     terms; the opcode counts of its inner loop (cuobjdump -sass); its time
+     at both blocks against its FLOP bound and its FP32 issue floor; the
+     (ray, tile) pairs it adds against those K1 tests; times of its plain
+     version and the relevance pass, and K1 / T1 on that batch; then the K1
+     microbenchmark (tools/bench_kernel.py) as a user runs it.
  11. T2a / T2b (csrc/passthrough.cu) bitwise against x.clone() on
      262,144 x 3 floats, each timed against x.clone() in turns inside one
      profiler window, warm and with the L2 flushed before each call; T2a
@@ -97,10 +106,11 @@ result line.
 
     python3 chip_smoke.py --kernel-times [--port-root DIR]
 
-runs phases 1-2 and only the times of K2, T2a and T2b (phases 4 and 11,
-warm and L2-flushed) on the port in DIR (a checkout of another commit;
-this one's by default), as one JSON line; no result line.  Two commits
-compare in one call: run it for each, in turns.
+runs phases 1-2 and only the times of K2, K3, T2a and T2b (phases 4, 7
+and 11, warm and L2-flushed) and of T1 (phase 10's, with its inner loop's
+SASS) on the port in DIR (a checkout of another commit; this one's by
+default), as one JSON line; no result line.  Two commits compare in one
+call: run it for each, in turns.
 """
 from __future__ import annotations
 
@@ -900,6 +910,71 @@ def k2_times(tm, img, flush, reps=50):
                 flushed_records=flushed_n, events_ms=cuda_ms(kernel, reps))
 
 
+# bands of this many pixels (a multiple of 4, not of any side here) make
+# phase 4's images launch in several bands that start inside rows
+K2_SMALL_BAND = 4100
+# an image with 3*H*W just above 2^31 - 1 (8.6 GB in, 8.6 GB out), and the
+# rows of it held against the plain version
+K2_HUGE_SIDE = 26755
+
+
+def k2_banded(tm, cases):
+    """Phase 4's images with BAND_PIXELS cut to K2_SMALL_BAND, so that each
+    launches in bands starting mid-row, vignette on and off: NaN in the
+    same channels as the plain version, the rest within K2_ATOL -> the
+    worst difference."""
+    saved, tm.BAND_PIXELS = tm.BAND_PIXELS, K2_SMALL_BAND
+    worst, launches = 0.0, 0
+    try:
+        for name, x in cases.items():
+            for vignette in (True, False):
+                before = tm.tonemap_kernel.launches
+                got = tm.tonemap(x, vignette=vignette, brightness=1.7)
+                launches += tm.tonemap_kernel.launches - before
+                want = tm.tonemap_plain(x, vignette=vignette, brightness=1.7)
+                nan_diff, diff = k2_compare(got, want)
+                worst = max(worst, diff)
+                if nan_diff or diff > K2_ATOL:
+                    fail(f"K2 {name} in bands of {K2_SMALL_BAND} pixels, "
+                         f"vignette={vignette}: {nan_diff} channels NaN in "
+                         f"only one, max abs diff {diff:.3g}")
+    finally:
+        tm.BAND_PIXELS = saved
+    log(f"  K2 in bands of {K2_SMALL_BAND} pixels (every image above, "
+        f"vignette on/off, {launches} launches): max abs diff {worst:.3g}, "
+        "NaN in the same channels")
+    return worst
+
+
+def k2_huge(tm, dev):
+    """K2 on a K2_HUGE_SIDE^2 image (3*H*W > 2^31 - 1: two bands), vignette
+    off, rows at the ends and around the band boundary against the plain
+    version of those rows -> the worst difference."""
+    import torch
+    h = w = K2_HUGE_SIDE
+    gen = torch.Generator(device=dev).manual_seed(11)
+    img = torch.rand((h, w, 3), generator=gen, device=dev).mul_(3.0)
+    img[h // 2, :7] = torch.tensor(K2_EDGES[:7], device=dev)[:, None]
+    before = tm.tonemap_kernel.launches
+    out = tm.tonemap(img, vignette=False)
+    launches = tm.tonemap_kernel.launches - before
+    edge = tm.BAND_PIXELS // w
+    rows = torch.tensor(sorted({0, 1, edge - 1, edge, edge + 1, h // 2,
+                                h - 2, h - 1}), device=dev)
+    nan_diff, diff = k2_compare(out[rows], tm.tonemap_plain(img[rows],
+                                                            vignette=False))
+    del img, out
+    torch.cuda.empty_cache()
+    log(f"  K2 {h}x{w} (3*H*W = {3 * h * w} > 2^31 - 1), vignette off: "
+        f"{launches} launches, rows {rows.tolist()} against the plain "
+        f"version: max abs diff {diff:.3g}, {nan_diff} channels NaN in only "
+        "one")
+    if nan_diff or diff > K2_ATOL or launches != len(tm.bands(h, w)):
+        fail(f"K2 {h}x{w}: {nan_diff} NaN differences, max abs diff "
+             f"{diff:.3g}, {launches} launches")
+    return diff
+
+
 def phase_k2(dev):
     import torch
     from photorealistic_rendering_using_opencl_tpu_torch.ops import tonemap as tm
@@ -932,6 +1007,8 @@ def phase_k2(dev):
         worst = max(worst, case_worst)
         log(f"  K2 {name}, vignette on/off x brightness 1.0/1.7: max abs "
             f"diff {case_worst:.3g}, NaN in the same {nans} channels")
+    worst = max(worst, k2_banded(tm, cases))
+    worst = max(worst, k2_huge(tm, dev))
     flush = l2_flush(dev)
     t = k2_times(tm, img, flush)
     p_ms, p_n = device_ms(lambda: tm.tonemap_plain(img), 50)
@@ -1107,6 +1184,63 @@ def regen_sort_on_off(cfg, scene, cam, w, h, spp, img):
 # phase 7: K3 against its plain version
 # ---------------------------------------------------------------------------
 
+# K3's timed sizes: a 512^2 frame's lanes (the flags compact_indices scans
+# in this phase) and a 4096^2 frame's (134 MB moved, 0.040 ms of bytes:
+# the size at which the byte bound means something)
+K3_SIZES = (RAYS, 4096 * 4096)
+K3_BLOCKS = (32, 64, 128, 256, 512, 1024)
+
+
+def k3_flags(n, dev, density=0.5, seed=None):
+    """[n] int32 0/1 flags, seeded by ``n`` unless given."""
+    import torch
+    rng = np.random.default_rng(n if seed is None else seed)
+    return torch.from_numpy((rng.uniform(size=n) < density)
+                            .astype(np.int32)).to(dev)
+
+
+def k3_times(compaction, f, flush, block=1024, reps=200):
+    """K3 on the flags ``f`` at ``block``, by the profiler, each reading in
+    turns with a yardstick in one window: ``x.clone()`` of the flags (a
+    copy of the same bytes) and the per-block ``torch.cumsum`` (the one
+    PyTorch call that computes K3's function, to a subtraction); warm and
+    with the L2 flushed before every call -> the times, records and bound."""
+    import torch
+    n = f.shape[0]
+
+    def kernel():
+        return compaction.block_scan_kernel(f, block)
+
+    def per_block_cumsum():
+        return torch.cumsum(f.view(-1, block), dim=1, dtype=torch.int32)
+
+    out = dict(n=n, block=block)
+    for key, fl in (("warm", None), ("flushed", flush)):
+        k_ms, c_ms, k_n, c_n = turns_ms(kernel, "block_scan_kernel", f.clone,
+                                        reps, fl)
+        k2_ms, s_ms, k2_n, s_n = turns_ms(kernel, "block_scan_kernel",
+                                          per_block_cumsum, reps, fl,
+                                          per_call=True)
+        out[key] = dict(ms=k_ms, clone_ms=c_ms, ms_beside_cumsum=k2_ms,
+                        cumsum_ms=s_ms, records=[k_n, c_n, k2_n, s_n])
+    # 4 B read and 4 B written per flag, 4 B per block total
+    out["bound"], out["by"] = bound_ms(n * 8 + n // block * 4, 0)
+    return out
+
+
+def k3_log(t, label):
+    w, f = t["warm"], t["flushed"]
+    log(f"  K3 {label} N={t['n']}, block {t['block']} (profiler, in turns, "
+        f"records {w['records']} / {f['records']}): warm {w['ms']:.5f} ms "
+        f"against x.clone() {w['clone_ms']:.5f} ({w['ms'] / w['clone_ms']:.3f}x)"
+        f", {w['ms_beside_cumsum']:.5f} against the per-block torch.cumsum "
+        f"{w['cumsum_ms']:.5f} a call; L2 flushed {f['ms']:.5f} against "
+        f"x.clone() {f['clone_ms']:.5f} ({f['ms'] / f['clone_ms']:.3f}x), "
+        f"{f['ms_beside_cumsum']:.5f} against the per-block cumsum "
+        f"{f['cumsum_ms']:.5f}; bound {t['bound']:.5f} ms ({t['by']}): "
+        f"{t['bound'] / w['ms']:.2f} warm, {t['bound'] / f['ms']:.2f} flushed")
+
+
 def phase_k3(dev):
     import torch
     from photorealistic_rendering_using_opencl_tpu_torch.ops import compaction
@@ -1115,7 +1249,15 @@ def phase_k3(dev):
     rng = np.random.default_rng(77)
     mismatches = 0
     cases = 0
-    for block in (256, 1024):
+
+    def check(f, block):
+        nonlocal mismatches, cases
+        s_p, t_p = compaction.block_scan_plain(f, block)
+        s_k, t_k = compaction.block_scan(f, block)
+        mismatches += int((s_k != s_p).sum()) + int((t_k != t_p).sum())
+        cases += 1
+
+    for block in K3_BLOCKS:
         for n in (1, 1023, 1025, 3000, RAYS):
             for density in (0.0, 0.03, 0.5, 0.97, 1.0):
                 f = torch.from_numpy((rng.uniform(size=n) < density)
@@ -1126,16 +1268,21 @@ def phase_k3(dev):
                 s_p, t_p = compaction.block_scan_plain(pad, block)
                 offsets = torch.cumsum(t_p, 0, dtype=torch.int32) - t_p
                 want = (s_p + torch.repeat_interleave(offsets, block))[:n]
-                s_k, t_k = compaction.block_scan(pad, block)
                 mismatches += int((scan != want).sum()) + int(
                     int(total) != int(t_p.sum()))
-                mismatches += int((s_k != s_p).sum()) + int((t_k != t_p).sum())
-                cases += 1
+                check(pad, block)
+        # int32 wrap-around: values near 2^30 sum past 2^31 in every block
+        big = torch.from_numpy(rng.integers(2**29, 2**30, 3 * block,
+                                            dtype=np.int64).astype(np.int32))
+        check(big.to(dev), block)
+        # a view that does not start on a 16-byte boundary
+        check(k3_flags(4 * block + 1, dev)[1:], block)
     alive = torch.from_numpy(rng.uniform(size=RAYS) < 0.5).to(dev)
     perm_c, n_c = compaction.compact_indices(alive.cpu())
     torch.cuda.synchronize()
-    log(f"  {cases} cases (blocks 256/1024, N up to {RAYS}, densities "
-        f"0-1): {mismatches} mismatches")
+    log(f"  {cases} cases (blocks {K3_BLOCKS}, N up to {RAYS}, densities "
+        f"0-1, int32 wrap-around, a misaligned view): {mismatches} "
+        "mismatches")
     if mismatches:
         fail(f"K3: {mismatches} mismatches against the plain version")
 
@@ -1149,32 +1296,45 @@ def phase_k3(dev):
     if launches != 2:
         fail(f"K3: compact_indices launched K3 {launches} times, not 2")
 
+    flush = l2_flush(dev)
     f = alive.to(torch.int32)
-    nb = RAYS // 1024
-    k_ms, k_n = kernel_ms(lambda: compaction.block_scan_kernel(f, 1024), 200)
+    sizes = [k3_times(compaction, f, flush)]
+    sizes += [k3_times(compaction, k3_flags(n, dev), flush)
+              for n in K3_SIZES[1:]]
+    for t in sizes:
+        k3_log(t, "")
+    t = sizes[0]
     p_ms, p_n = device_ms(lambda: compaction.block_scan_plain(f, 1024), 200)
-    # torch.cumsum launches more than one kernel a call: timed a call
-    lib_ms, lib_n = device_ms(lambda: torch.cumsum(f, 0, dtype=torch.int32),
-                              200)
+    # the whole exclusive_prefix_sum call (K3, then the offsets added outside
+    # the kernel) against a scan of the whole array, which is not K3's
+    # function: both several kernels a call, timed a call
     eps_ms, _ = device_ms(lambda: compaction.exclusive_prefix_sum(f, 1024),
                           200)
-    k_ev = cuda_ms(lambda: compaction.block_scan_kernel(f, 1024), 200)
-    # 4 B read and 4 B written per flag, 4 B per block total
-    bound, by = bound_ms(RAYS * 8 + nb * 4, 0)
-    log(f"  K3 N={RAYS}, block 1024, device time: kernel {k_ms:.4f} ms (a "
-        f"record, {k_n} of 200 launches recorded), plain {p_ms:.4f} ms a call "
-        f"({p_n} kernel records over 200 calls), torch.cumsum {lib_ms:.4f} ms "
-        f"a call ({lib_n} kernel records over 200 calls), whole "
-        f"exclusive_prefix_sum {eps_ms:.4f} ms a call, bound {bound:.5f} ms "
-        f"({by}); the kernel launched back to back from Python: {k_ev:.4f} ms "
-        f"per launch; compact_indices launches {launches}")
-    timed_by = (f"ms: profiler device time, mean over the {k_n} kernel records "
-                "kept of 200 launches (one kernel a call); plain_ms and "
-                f"library_ms: profiler device time of all kernel records of 200 "
-                f"calls ({p_n} and {lib_n}), over 200")
-    return dict(launches=launches, err=float(mismatches), ms=k_ms,
-                plain_ms=p_ms, library_ms=lib_ms, bound=bound, by=by,
-                timed_by=timed_by)
+    whole_ms, whole_n = device_ms(
+        lambda: torch.cumsum(f, 0, dtype=torch.int32), 200)
+    log(f"  K3 N={RAYS}: plain {p_ms:.4f} ms a call ({p_n} kernel records over "
+        f"200 calls); the whole exclusive_prefix_sum {eps_ms:.4f} ms a call "
+        f"against torch.cumsum of the whole array {whole_ms:.4f} ms a call "
+        f"({whole_n} kernel records over 200 calls); compact_indices "
+        f"launches {launches}")
+    timed_by = ("ms: profiler device time, mean over the kernel records kept "
+                "of 200 launches in turns with x.clone() of the flags in one "
+                "window (plain_ms's clone_ms); ms_l2_flushed: the same, each "
+                f"call after a {L2_FLUSH_BYTES >> 20} MB fill whose records "
+                "are left out by name; library_ms: the per-block "
+                "torch.cumsum(f.view(-1, block), dim=1) in turns with K3 in "
+                "another window, all its records over its calls; plain_ms: "
+                "profiler device time of all kernel records of 200 calls of "
+                "block_scan_plain, over 200; exclusive_prefix_sum_ms and "
+                "whole_array_cumsum_ms: the whole call against a scan of the "
+                "whole array (not K3's function), the same way; by_size: "
+                "every reading at each size")
+    return dict(launches=launches, err=float(mismatches),
+                ms=t["warm"]["ms"], flushed_ms=t["flushed"]["ms"],
+                plain_ms=p_ms, library_ms=t["warm"]["cumsum_ms"],
+                library_flushed_ms=t["flushed"]["cumsum_ms"],
+                exclusive_prefix_sum_ms=eps_ms, whole_array_cumsum_ms=whole_ms,
+                bound=t["bound"], by=t["by"], by_size=sizes, timed_by=timed_by)
 
 
 # ---------------------------------------------------------------------------
@@ -1682,7 +1842,8 @@ def phase_inverse(dev, gpu_line):
 # phase 10: T1 against its plain version, and the K1 microbenchmark
 # ---------------------------------------------------------------------------
 
-T1_BLOCK = 128  # the rays a CTA of K1's first design staged a tile for
+T1_BLOCK = 128  # the relevance block of phase 3's comparison and the table
+T1_BLOCKS = (128, 256)  # the blocks the reference's tool runs
 # T1 and its plain version sum in other orders: the bound is this fraction
 # of each ray's sum of absolute terms
 T1_REL = 1e-5
@@ -1690,86 +1851,183 @@ T1_REL = 1e-5
 # product chains 33 (den 5, t*den 6, u*den 11, v*den 11), three adds and
 # the running sum 4
 T1_PAIR_FLOPS = 37
+# ... and its FP32 instructions (FFMA, FMUL, FADD: den 3, t*den 4, u*den 6,
+# v*den 6, the adds 4), which issue at one warp instruction a clock a
+# scheduler: half the FLOP rate, an FFMA being 2 FLOPs
+T1_PAIR_INSTRUCTIONS = 23
+FP32_INSTRUCTIONS_PER_S = FP32_FLOP_PER_S / 2
+
+
+def sass_inner_loop(so_path, function):
+    """Opcode counts of the inner loop of the kernel whose name holds
+    ``function`` in the library ``so_path``, read with ``cuobjdump -sass``:
+    among the innermost loops (a backward branch whose address range holds
+    no other), the one with the most FFMA -> dict, or {"note": why not}."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return {"note": "no cuobjdump on this machine: the SASS is not read"}
+    res = subprocess.run([tool, "-sass", so_path], capture_output=True,
+                         text=True, timeout=300)
+    if res.returncode != 0:
+        return {"note": f"cuobjdump -sass failed ({res.returncode}): "
+                        f"{res.stderr.strip()[:200]}"}
+    body = next((part for part in res.stdout.split("Function : ")[1:]
+                 if function in part.split("\n", 1)[0]), None)
+    if body is None:
+        return {"note": f"no function named {function} in the SASS"}
+    ins = [(int(m.group(1), 16), m.group(2).split())
+           for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    ops = [(a, t[1] if t[0].startswith("@") else t[0], t) for a, t in ins if t]
+    loops = []
+    for a, op, t in ops:
+        target = re.match(r"0x([0-9a-f]+)$", t[-1]) if op == "BRA" else None
+        if target and int(target.group(1), 16) <= a:
+            loops.append((int(target.group(1), 16), a))
+    inner = [lp for lp in loops if not any(
+        o != lp and lp[0] <= o[0] and o[1] <= lp[1] for o in loops)]
+    if not inner:
+        return {"note": "no loop found in the SASS"}
+
+    def counts(lp):
+        c = {}
+        for a, op, _ in ops:
+            if lp[0] <= a <= lp[1]:
+                c[op] = c.get(op, 0) + 1
+        return c
+
+    best = max(inner, key=lambda lp: counts(lp).get("FFMA", 0))
+    c = counts(best)
+    fp32 = sum(v for k, v in c.items() if k.split(".")[0] in
+               ("FFMA", "FMUL", "FADD"))
+    return dict(loop=[hex(best[0]), hex(best[1])],
+                instructions=sum(c.values()), fp32=fp32,
+                ops=dict(sorted(c.items(), key=lambda kv: -kv[1])))
+
+
+def t1_pairs(words, n, block):
+    """(block, tile) and (ray, tile) pairs T1 adds (every ray of a block
+    with a tile's bit set; words from relevance_words at ``block``), and
+    the tiles of each block."""
+    import torch
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    bits = (w[..., None] >> torch.arange(32, device=w.device)) & 1
+    per_block = bits.sum((1, 2))
+    rays_in = torch.clamp(n - torch.arange(per_block.shape[0],
+                                           device=w.device) * block,
+                          max=block)
+    return int(per_block.sum()), int((per_block * rays_in).sum()), per_block
+
+
+def t1_time(mesh_brute, b, feat, clusters, block, reps=5):
+    """T1 on phase 3's batch ``b`` at ``block``: CUDA events around
+    ``reps`` back-to-back launches, with its bounds and the (min, mean,
+    max) relevant tiles of a block -> dict."""
+    o, d, t_init, act = b["origin"], b["direction"], b["t_init"], b["active"]
+    n = o.shape[0]
+    words = mesh_brute.relevance_words(clusters, o, d, t_init, act, block)
+    pack = mesh_brute.matmul_only_pack(o, d, t_init)
+    block_tiles, pairs, per_block = t1_pairs(words, n, block)
+
+    def kernel():
+        return mesh_brute.matmul_only_kernel(words, pack, feat, block)
+
+    n_bytes = (words.numel() * 4 + pack.numel() * 4 + feat.numel() * 4
+               + n * 8)
+    flops = pairs * mesh_brute.TILE * T1_PAIR_FLOPS
+    bound, by = bound_ms(n_bytes, flops)
+    floor = (pairs * mesh_brute.TILE * T1_PAIR_INSTRUCTIONS
+             / FP32_INSTRUCTIONS_PER_S * 1e3)
+    return dict(block=block, ms=cuda_ms(kernel, reps), reps=reps,
+                block_tiles=block_tiles, pairs=pairs, bound=bound, by=by,
+                issue_floor=floor, gflop=flops / 1e9, mb=n_bytes / 1e6,
+                tiles_per_block=[int(per_block.min()), float(per_block.float()
+                                 .mean()), int(per_block.max())])
 
 
 def phase_t1(dev, b, k1_ms):
     """T1 on the cornell_hi tables and phase 3's random population, against
-    its plain version; its work against K1's; then the K1 microbenchmark
+    its plain version at both blocks; its work against K1's; its times at
+    both blocks and its inner loop's SASS; then the K1 microbenchmark
     (tools/bench_kernel.py) driven as a user runs it."""
     import torch
-    from photorealistic_rendering_using_opencl_tpu_torch.ops import mesh_brute
+    from photorealistic_rendering_using_opencl_tpu_torch.ops import _cuda, mesh_brute
     from photorealistic_rendering_using_opencl_tpu_torch.scene.loader import load_scene
     from photorealistic_rendering_using_opencl_tpu_torch.tools import bench_kernel
 
-    log(f"[10] T1 matmul_only.cu against its plain version (block {T1_BLOCK}); "
-        "the K1 microbenchmark")
+    log(f"[10] T1 matmul_only.cu against its plain version (blocks "
+        f"{T1_BLOCKS}); the K1 microbenchmark")
     _, scene = load_scene(os.path.join(REPO, "scenes/cornell_hi.json"),
                           models_dir=os.path.join(REPO, "scenes/assets"),
                           device=dev)
     feat, clusters = scene.bf_feat, scene.bf_clusters
     o, d, t_init, act = b["origin"], b["direction"], b["t_init"], b["active"]
     n = o.shape[0]
+    pack = mesh_brute.matmul_only_pack(o, d, t_init)
+    max_abs, rel = 0.0, 0.0
+    for block in T1_BLOCKS:
+        words = mesh_brute.relevance_words(clusters, o, d, t_init, act, block)
+        t_k, i_k = mesh_brute.matmul_only_kernel(words, pack, feat, block)
+        t_p, _ = mesh_brute.matmul_only_plain(words, pack, feat, block)
+        scale, _ = mesh_brute.matmul_only_plain(words, pack.abs(), feat.abs(),
+                                                block)
+        torch.cuda.synchronize()
+        err = (t_k - t_p).abs()
+        b_rel = float((err / scale.clamp(min=1e-30)).max())
+        if bool(i_k.any()):
+            fail(f"T1 block {block}: the index output is not all zero")
+        if b_rel > T1_REL:
+            fail(f"T1 block {block}: {b_rel:.3g} of the sum of absolute "
+                 f"terms > {T1_REL}")
+        max_abs, rel = max(max_abs, float(err.max())), max(rel, b_rel)
+        log(f"  T1 vs plain, block {block}: {n} rays, max abs diff "
+            f"{float(err.max()):.3g}, {b_rel:.3g} of the sum of absolute "
+            f"terms (limit {T1_REL}); index output all zero")
+
+    sass = sass_inner_loop(_cuda.LIBRARY._so_path(), "matmul_only_kernel")
+    log(f"  T1 inner loop, SASS (cuobjdump -sass of the kernel library): "
+        f"{json.dumps(sass)}")
+    times = {blk: t1_time(mesh_brute, b, feat, clusters, blk)
+             for blk in T1_BLOCKS}
+    for t in times.values():
+        log(f"  T1 block {t['block']}: {t['ms']:.3f} ms (CUDA events, "
+            f"{t['reps']} launches back to back); {t['block_tiles']} (block, "
+            f"tile) pairs = {t['pairs']} (ray, tile) pairs, relevant tiles a "
+            f"block min / mean / max {t['tiles_per_block']}; FLOP bound "
+            f"{t['bound']:.4f} ms ({t['by']}: {t['gflop']:.2f} GFLOP, "
+            f"{t['mb']:.1f} MB), {t['bound'] / t['ms']:.2f} of it; issue "
+            f"floor {t['issue_floor']:.4f} ms, {t['issue_floor'] / t['ms']:.2f} "
+            "of it")
+    t = times[T1_BLOCK]
+
+    # the work: T1 adds every (ray, tile) pair of a block whose bit is set;
+    # K1 tests only the pairs its per-thread slab test lets through
+    k1_warps, k1_pairs, k1_slabs, _, _ = k1_counters(feat, clusters, b)
+    words = mesh_brute.relevance_words(clusters, o, d, t_init, act, T1_BLOCK)
+
+    def kernel():
+        return mesh_brute.matmul_only_kernel(words, pack, feat, T1_BLOCK)
 
     def relevance():
         return mesh_brute.relevance_words(clusters, o, d, t_init, act,
                                           T1_BLOCK)
 
-    words = relevance()
-    pack = mesh_brute.matmul_only_pack(o, d, t_init)
-    t_k, i_k = mesh_brute.matmul_only_kernel(words, pack, feat, T1_BLOCK)
-    t_p, _ = mesh_brute.matmul_only_plain(words, pack, feat, T1_BLOCK)
-    scale, _ = mesh_brute.matmul_only_plain(words, pack.abs(), feat.abs(),
-                                            T1_BLOCK)
-    torch.cuda.synchronize()
-    err = (t_k - t_p).abs()
-    rel = float((err / scale.clamp(min=1e-30)).max())
-    max_abs = float(err.max())
-    if bool(i_k.any()):
-        fail("T1: the index output is not all zero")
-    if rel > T1_REL:
-        fail(f"T1: {rel:.3g} of the sum of absolute terms > {T1_REL}")
-
-    # the work: T1 adds every (ray, tile) pair of a block whose bit is set;
-    # K1 tests only the pairs its per-thread slab test lets through
-    w = words.to(torch.int64) & 0xFFFFFFFF
-    per_block = ((w[..., None] >> torch.arange(32, device=dev)) & 1).sum((1, 2))
-    rays_in = torch.clamp(n - torch.arange(per_block.shape[0], device=dev)
-                          * T1_BLOCK, max=T1_BLOCK)
-    t1_blocks = int(per_block.sum())
-    t1_pairs = int((per_block * rays_in).sum())
-    k1_warps, k1_pairs, k1_slabs, _, _ = k1_counters(feat, clusters, b)
-
-    def kernel():
-        return mesh_brute.matmul_only_kernel(words, pack, feat, T1_BLOCK)
-
     # the profiler keeps only some records of long kernels on the H100
-    # (kernel_ms): T1, one long kernel a call, is timed by CUDA events
-    # around back-to-back launches
+    # (kernel_ms): T1 is timed by CUDA events (t1_time)
     t_prof, t_n = kernel_ms(kernel, 5)
-    t_ms = cuda_ms(kernel, 5)
     p_ms, p_n = device_ms(lambda: mesh_brute.matmul_only_plain(
         words, pack, feat, T1_BLOCK), 1)
     r_ms, _ = device_ms(relevance, 3)
-    n_bytes = (words.numel() * 4 + pack.numel() * 4 + feat.numel() * 4
-               + n * 8)
-    flops = t1_pairs * mesh_brute.TILE * T1_PAIR_FLOPS
-    bound, by = bound_ms(n_bytes, flops)
-    log(f"  T1 vs plain: {n} rays, max abs diff {max_abs:.3g}, "
-        f"{rel:.3g} of the sum of absolute terms (limit {T1_REL}); index "
-        "output all zero")
-    log(f"  work: T1 {t1_blocks} (block, tile) pairs = {t1_pairs} (ray, tile) "
-        f"pairs from the bits; K1 {k1_warps} (warp, tile) pairs processed, "
-        f"{k1_pairs} (ray, tile) pairs tested, {k1_slabs} slab tests "
-        f"(T1 adds {t1_pairs / max(k1_pairs, 1):.1f}x the pairs K1 tests)")
-    log(f"  T1 {t_ms:.3f} ms (CUDA events, 5 launches back to back; the "
-        f"profiler's device time {t_prof:.3f} ms over the {t_n} of 5 launches "
-        f"it recorded), {t_ms / k1_ms:.2f}x K1's "
-        f"{k1_ms:.3f} ms on this batch (phase 3): K1 / T1 "
-        f"{k1_ms / t_ms:.3f} (first design: 0.58 on this batch); device time: "
-        "plain "
-        f"{p_ms:.3f} ms, relevance pass {r_ms:.3f} ms; "
-        f"bound {bound:.4f} ms ({by}: {flops / 1e9:.2f} GFLOP, "
-        f"{n_bytes / 1e6:.1f} MB)")
+    log(f"  work: T1 {t['pairs']} (ray, tile) pairs from the bits at block "
+        f"{T1_BLOCK}; K1 {k1_warps} (warp, tile) pairs processed, {k1_pairs} "
+        f"(ray, tile) pairs tested, {k1_slabs} slab tests (T1 adds "
+        f"{t['pairs'] / max(k1_pairs, 1):.1f}x the pairs K1 tests)")
+    log(f"  T1 block {T1_BLOCK}: {t['ms']:.3f} ms (the profiler's device time "
+        f"{t_prof:.3f} ms over the {t_n} of 5 launches it recorded), "
+        f"{t['ms'] / k1_ms:.2f}x K1's {k1_ms:.3f} ms on this batch (phase 3): "
+        f"K1 / T1 {k1_ms / t['ms']:.3f}; device time: plain {p_ms:.3f} ms, "
+        f"relevance pass {r_ms:.3f} ms")
 
     # the microbenchmark as a user runs it, with the counts set to 0 first
     mesh_brute.matmul_only_kernel.launches = 0
@@ -1787,26 +2045,31 @@ def phase_t1(dev, b, k1_ms):
         "ms; "
         f"{bench['block_tiles']} (block, tile) pairs; launches T1 {launches}, "
         f"K1 {k1_launches}")
-    timed_by = ("ms: CUDA events around 5 back-to-back launches (the profiler "
-                f"kept {t_n} of their 5 kernel records); plain_ms: profiler "
+    timed_by = (f"ms: CUDA events around 5 back-to-back launches at block "
+                f"{T1_BLOCK} (the profiler kept {t_n} of 5 kernel records); "
+                "ms_by_block: the same at each block; plain_ms: profiler "
                 f"device time of all {p_n} kernel records of one call")
     return dict(launches=launches, k1_launches=k1_launches, err=max_abs,
-                rel=rel, ms=t_ms, plain_ms=p_ms, relevance_ms=r_ms,
-                bound=bound, by=by, bench=bench, k1_over_t1=k1_ms / t_ms,
-                timed_by=timed_by)
+                rel=rel, ms=t["ms"], plain_ms=p_ms, relevance_ms=r_ms,
+                bound=t["bound"], by=t["by"], issue_floor=t["issue_floor"],
+                by_block={str(k): v for k, v in times.items()}, sass=sass,
+                bench=bench, k1_over_t1=k1_ms / t["ms"], timed_by=timed_by)
 
 
 # ---------------------------------------------------------------------------
 # phase 11: T2a and T2b against x.clone(), and the barrier probe
 # ---------------------------------------------------------------------------
 
-def turns_ms(kernel, match, other, reps, flush=None):
-    """Device ms a call of ``kernel`` and of ``other`` (one kernel each),
-    run in turns (other, kernel, kernel, other, ...) inside one
-    torch.profiler window, each call after ``flush()`` where given: the
-    device time of kernels whose name holds ``match`` is ``kernel``'s,
-    ``flush()``'s records are left out by name, the rest is ``other``'s
-    -> (kernel ms, other ms, and the records the profiler kept of each)."""
+def turns_ms(kernel, match, other, reps, flush=None, per_call=False):
+    """Device ms a call of ``kernel`` (one kernel) and of ``other``, run in
+    turns (other, kernel, kernel, other, ...) inside one torch.profiler
+    window, each call after ``flush()`` where given: the device time of
+    kernels whose name holds ``match`` is ``kernel``'s, ``flush()``'s
+    records are left out by name, the rest is ``other``'s -> (kernel ms,
+    other ms, and the records the profiler kept of each).  Each is a mean
+    over the records kept (one kernel a call), or, for ``other`` with
+    ``per_call``, all its records' time over its calls (a call of several
+    kernels)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     skip = record_names(flush) if flush else set()
@@ -1828,7 +2091,8 @@ def turns_ms(kernel, match, other, reps, flush=None):
         fail(f"turns_ms: the profiler kept {count[True]} records named "
              f"'{match}' and {count[False]} others")
     # a mean over the records the profiler kept (see kernel_ms)
-    return (time[True] / count[True] / 1e3, time[False] / count[False] / 1e3,
+    other_n = 2 * (reps // 2) if per_call else count[False]
+    return (time[True] / count[True] / 1e3, time[False] / other_n / 1e3,
             count[True], count[False])
 
 
@@ -2213,14 +2477,31 @@ def phase_k1_sweep(dev, pops):
 
 def kernel_times(dev, root):
     """--kernel-times: K2 (phase 4's image), T2a and T2b (phase 11's
-    inputs, each in turns with x.clone()), warm and with the L2 flushed,
-    on the port found at ``root``; one JSON line."""
+    inputs, each in turns with x.clone()), K3 (phase 7's sizes, in turns
+    with x.clone() and the per-block torch.cumsum), all warm and with the
+    L2 flushed, and T1 (phase 10's batch at both blocks, CUDA events, with
+    its inner loop's SASS), on the port found at ``root``; one JSON line."""
+    from photorealistic_rendering_using_opencl_tpu_torch.ops import _cuda, compaction, mesh_brute
     from photorealistic_rendering_using_opencl_tpu_torch.ops import tonemap as tm
-    log(f"[4, 11] kernel times of the port at {root}")
+    from photorealistic_rendering_using_opencl_tpu_torch.scene.loader import load_scene
+    log(f"[4, 7, 10, 11] kernel times of the port at {root}")
     flush = l2_flush(dev)
     res = {"port_root": root, "K2": k2_times(tm, k2_image(dev), flush)}
     for name, fn, arg in t2_inputs(dev):
         res[name] = t2_times(fn, arg, flush)
+    res["K3"] = [k3_times(compaction, k3_flags(n, dev), flush)
+                 for n in K3_SIZES]
+    for t in res["K3"]:
+        k3_log(t, "")
+    _, scene = load_scene(os.path.join(REPO, "scenes/cornell_hi.json"),
+                          models_dir=os.path.join(REPO, "scenes/assets"),
+                          device=dev)
+    b = k1_populations(scene, dev)["random"]
+    res["T1"] = {str(blk): t1_time(mesh_brute, b, scene.bf_feat,
+                                   scene.bf_clusters, blk)
+                 for blk in T1_BLOCKS}
+    res["T1_sass"] = sass_inner_loop(_cuda.LIBRARY._so_path(),
+                                     "matmul_only_kernel")
     log("kernel times: " + json.dumps(res))
 
 
@@ -2263,7 +2544,7 @@ def main(argv=None) -> int:
     if times:
         kernel_times(dev, root)
         log("partial run (--kernel-times: phases 1-2 and the times of K2, "
-            "T2a and T2b); no result line")
+            "K3, T1, T2a and T2b); no result line")
         return 0
 
     t_start = time.perf_counter()
@@ -2331,6 +2612,10 @@ def main(argv=None) -> int:
          "launches": sum(k1_paths.values()), "launches_by_path": k1_paths,
          "max_abs_err": k1_err, "ms": cam["ms"], "plain_ms": cam["plain_ms"],
          "bound_ms": cam["bound"], "bound_by": cam["by"], "library_ms": None,
+         "library_note": "no PyTorch call computes a closest hit: a "
+                         "torch.matmul of the rays against the table gives "
+                         "den, t*den, u*den and v*den, and the hit test, the "
+                         "division and the per-ray minimum are more calls",
          "timed_by": "ms: CUDA events around 10 back-to-back launches "
                      "(camera rays, unsorted; profiler_ms: the profiler's "
                      "device time, mean over the kernel records it kept of "
@@ -2355,17 +2640,31 @@ def main(argv=None) -> int:
         {"name": "K3 block_scan", "route": "cuda",
          "source": f"{PKG}/csrc/block_scan.cu",
          "replaces": "photorealistic_rendering_using_opencl_tpu/ops/pallas_kernels.py:98",
-         "launches": k3["launches"], "max_abs_err": k3["err"],
-         "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound"],
-         "bound_by": k3["by"], "library_ms": k3["library_ms"],
-         "timed_by": k3["timed_by"]},
+         "launches": k3["launches"],
+         "launches_by_path": {"compact_indices": k3["launches"]},
+         "max_abs_err": k3["err"], "ms": k3["ms"],
+         "ms_l2_flushed": k3["flushed_ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3["bound"], "bound_by": k3["by"],
+         "library_ms": k3["library_ms"],
+         "library_ms_l2_flushed": k3["library_flushed_ms"],
+         "library_call": "torch.cumsum(f.view(-1, block), dim=1) (per block)",
+         "exclusive_prefix_sum_ms": k3["exclusive_prefix_sum_ms"],
+         "whole_array_cumsum_ms": k3["whole_array_cumsum_ms"],
+         "by_size": k3["by_size"], "timed_by": k3["timed_by"]},
         {"name": "T1 matmul_only", "route": "cuda",
          "source": f"{PKG}/csrc/matmul_only.cu",
          "replaces": "tools/bench_kernel.py:55",
          "launches": t1["launches"],
          "launches_by_path": {"bench_kernel": t1["launches"]},
          "max_abs_err": t1["err"], "ms": t1["ms"], "plain_ms": t1["plain_ms"],
-         "bound_ms": t1["bound"], "bound_by": t1["by"], "library_ms": None,
+         "bound_ms": t1["bound"], "bound_by": t1["by"],
+         "issue_floor_ms": t1["issue_floor"], "library_ms": None,
+         "library_note": "no single PyTorch call computes it: its one-call "
+                         "form, torch.matmul of the pack against the whole "
+                         "table then a masked sum, would materialise "
+                         "N x 4*Tpad floats (343 GB at 262,144 rays on "
+                         "cornell_hi)",
+         "by_block": t1["by_block"], "inner_loop_sass": t1["sass"],
          "timed_by": t1["timed_by"]},
     ]
     for name, line in (("T2a", 57), ("T2b", 112)):

@@ -16,7 +16,11 @@
 //     16-byte loads and three 16-byte stores), over a grid-stride loop on a
 //     grid of the card's resident CTAs;
 //   - one 32-bit division a group finds its row and column; the column then
-//     steps across row ends (the wrapper keeps 3*h*w within an int);
+//     steps across row ends.  Indices are 32-bit: the wrapper launches an
+//     image of more than 2^29 pixels in bands of at most 2^29 (a multiple
+//     of 4, so a band of an aligned image starts aligned), each with the
+//     row and column of its first pixel; the vignette uses the whole
+//     image's h and w;
 //   - every division is a multiplication by an approximate reciprocal
 //     (1 ulp; those of h and w once a thread, those of the constant
 //     divisors rounded once from double) and the power is ex2(lg2(c) / 2.2)
@@ -106,7 +110,8 @@ __device__ __forceinline__ float display(float c) {
 template <bool kVecLoad>
 __global__ void __launch_bounds__(THREADS)
 tonemap_kernel(const float* __restrict__ img, float* __restrict__ out, int h,
-               int w, int groups, int tail, float brightness, int vignette) {
+               int w, int y0, int x0, int groups, int tail, float brightness,
+               int vignette) {
   const int stride = gridDim.x * THREADS;
   const float inv_h = rcp_approx((float)h), inv_w = rcp_approx((float)w);
   for (int g = blockIdx.x * THREADS + threadIdx.x; g < groups; g += stride) {
@@ -124,8 +129,11 @@ tonemap_kernel(const float* __restrict__ img, float* __restrict__ out, int h,
 #pragma unroll
       for (int k = 0; k < 3 * GROUP; ++k) v[k] = src[k];
     }
-    int y = GROUP * g / w;
-    int x = GROUP * g - y * w;
+    // x0 < w and GROUP * g < 2^29, so the column sum fits 32 unsigned bits
+    const unsigned pos = (unsigned)x0 + (unsigned)(GROUP * g);
+    const unsigned q = pos / (unsigned)w;
+    int y = y0 + (int)q;
+    int x = (int)(pos - q * (unsigned)w);
     float ys = row_coord(y, inv_h);
 #pragma unroll
     for (int k = 0; k < GROUP; ++k) {
@@ -145,19 +153,19 @@ tonemap_kernel(const float* __restrict__ img, float* __restrict__ out, int h,
   // the last h*w % 4 pixels, one a thread of the first CTA
   if (blockIdx.x == 0 && (int)threadIdx.x < tail) {
     const int p = GROUP * groups + threadIdx.x;
-    const int y = p / w;
+    const unsigned pos = (unsigned)x0 + (unsigned)p;
+    const unsigned q = pos / (unsigned)w;
     const float scale =
-        pixel_scale(p - y * w, row_coord(y, inv_h), inv_w, brightness,
-                    vignette);
+        pixel_scale((int)(pos - q * (unsigned)w), row_coord(y0 + (int)q, inv_h),
+                    inv_w, brightness, vignette);
 #pragma unroll
     for (int c = 0; c < 3; ++c) out[3 * p + c] = display(img[3 * p + c] * scale);
   }
 }
 
 template <bool kVecLoad>
-int launch(const float* img, float* out, int h, int w, float brightness,
-           int vignette, cudaStream_t stream) {
-  const int n = h * w;  // the wrapper keeps 3 * h * w within an int
+int launch(const float* img, float* out, int n, int w, int h, int y0, int x0,
+           float brightness, int vignette, cudaStream_t stream) {
   const int groups = n / GROUP;
   static int cache[prt::kMaxDevices] = {};
   int ctas = 0;
@@ -168,17 +176,22 @@ int launch(const float* img, float* out, int h, int w, float brightness,
   if (blocks > ctas) blocks = ctas;
   if (blocks < 1) blocks = 1;
   tonemap_kernel<kVecLoad><<<blocks, THREADS, 0, stream>>>(
-      img, out, h, w, groups, n % GROUP, brightness, vignette);
+      img, out, h, w, y0, x0, groups, n % GROUP, brightness, vignette);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int prt_tonemap(const float* img, float* out, int h, int w,
-                           float brightness, int vignette, void* stream) {
-  if ((uintptr_t)out % 16) return (int)cudaErrorInvalidValue;
+// One band: the n pixels from row y0, column x0 of an h x w image (img and
+// out point at that pixel).
+extern "C" int prt_tonemap(const float* img, float* out, int n, int w, int h,
+                           int y0, int x0, float brightness, int vignette,
+                           void* stream) {
+  if ((uintptr_t)out % 16 || n < 0 || n > (1 << 29) || w < 1 || x0 < 0 ||
+      x0 >= w)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   return (uintptr_t)img % 16
-             ? launch<false>(img, out, h, w, brightness, vignette, s)
-             : launch<true>(img, out, h, w, brightness, vignette, s);
+             ? launch<false>(img, out, n, w, h, y0, x0, brightness, vignette, s)
+             : launch<true>(img, out, n, w, h, y0, x0, brightness, vignette, s);
 }

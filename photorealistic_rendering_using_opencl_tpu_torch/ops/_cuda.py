@@ -45,7 +45,8 @@ _SIGNATURES = {
     "prt_mesh_brute": [_c_vp, _c_ll, _c_int, _c_vp, _c_vp, _c_vp, _c_vp,
                        _c_vp, _c_vp, _c_vp, _c_ll, _c_vp, _c_vp, _c_vp,
                        _c_vp],
-    "prt_tonemap": [_c_vp, _c_vp, _c_int, _c_int, _c_float, _c_int, _c_vp],
+    "prt_tonemap": [_c_vp, _c_vp, _c_int, _c_int, _c_int, _c_int, _c_int,
+                    _c_float, _c_int, _c_vp],
     "prt_block_scan": [_c_vp, _c_vp, _c_vp, _c_ll, _c_int, _c_vp],
     "prt_matmul_only": [_c_vp, _c_int, _c_vp, _c_vp, _c_ll, _c_int, _c_ll,
                         _c_int, _c_vp, _c_vp, _c_vp],
@@ -145,6 +146,14 @@ def check(code: int, name: str) -> None:
 def stream_handle(t: torch.Tensor) -> int:
     """PyTorch's current stream on ``t``'s device, as a raw pointer."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def on_device(t: torch.Tensor):
+    """Context in which a wrapper calls into C: ``t``'s device made the
+    current one, so that the launch, the device the C code queries (grid
+    sizes, shared-memory opt-ins) and the stream of ``stream_handle(t)`` are
+    the same card whatever device was current before."""
+    return torch.cuda.device(t.device)
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,

@@ -54,9 +54,10 @@ class _BlockScanKernel:
         if nb == 0:
             return scans, totals
         lib = _cuda.LIBRARY.get()
-        code = lib.prt_block_scan(f.data_ptr(), scans.data_ptr(),
-                                  totals.data_ptr(), nb, block,
-                                  _cuda.stream_handle(f))
+        with _cuda.on_device(f):
+            code = lib.prt_block_scan(f.data_ptr(), scans.data_ptr(),
+                                      totals.data_ptr(), nb, block,
+                                      _cuda.stream_handle(f))
         _cuda.check(code, "prt_block_scan")
         self.launches += 1
         return scans, totals

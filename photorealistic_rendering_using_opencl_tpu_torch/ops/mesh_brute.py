@@ -22,7 +22,7 @@ callers re-derive exact t/u/v from it (ops/intersect.py: tri_reattach).
 
 ``_block_relevance`` is the reference's XLA-side tile prune, which K1
 folds into itself; here it feeds only T1 (``matmul_only``), the
-microbenchmark's ablation that keeps K1's staging and dot products and
+microbenchmark's ablation that keeps K1's per-pair dot products and
 drops everything else (tools/bench_kernel.py).
 """
 from __future__ import annotations
@@ -210,9 +210,7 @@ class _MeshBruteKernel:
         if n == 0:
             return out_t, out_tri
         lib = _cuda.LIBRARY.get()
-        # the launch (and the shared-memory opt-in of large tables) goes to
-        # the current device: make it the tensors'
-        with torch.cuda.device(dev):
+        with _cuda.on_device(origin):
             code = lib.prt_mesh_brute(
                 feat.data_ptr(), feat.stride(0), nt, clusters.data_ptr(),
                 origin.data_ptr(), direction.data_ptr(), t_init.data_ptr(),
@@ -376,15 +374,19 @@ class _MatmulOnlyKernel:
                       dev)
         _cuda.require(pack, "pack", torch.float32, (FEAT, n), dev)
         _cuda.require(feat, "feat", torch.float32, (FEAT, 4 * TILE * nt), dev)
+        if feat.data_ptr() % 16:
+            raise ValueError("feat: the kernel copies it in 16-byte pieces; "
+                             "its data must start on a 16-byte boundary")
         out_t = torch.empty((n,), dtype=torch.float32, device=dev)
         out_i = torch.empty((n,), dtype=torch.int32, device=dev)
         if n == 0:
             return out_t, out_i
         lib = _cuda.LIBRARY.get()
-        code = lib.prt_matmul_only(
-            words.data_ptr(), nwords, pack.data_ptr(), feat.data_ptr(),
-            feat.stride(0), nt, n, block, out_t.data_ptr(), out_i.data_ptr(),
-            _cuda.stream_handle(pack))
+        with _cuda.on_device(pack):
+            code = lib.prt_matmul_only(
+                words.data_ptr(), nwords, pack.data_ptr(), feat.data_ptr(),
+                feat.stride(0), nt, n, block, out_t.data_ptr(),
+                out_i.data_ptr(), _cuda.stream_handle(pack))
         _cuda.check(code, "prt_matmul_only")
         self.launches += 1
         return out_t, out_i

@@ -36,8 +36,10 @@ class _PassthroughKernel:
         out = torch.empty_like(x)
         if n == 0:
             return out
-        code = _cuda.LIBRARY.get().prt_passthrough(
-            x.data_ptr(), out.data_ptr(), x.numel(), _cuda.stream_handle(x))
+        lib = _cuda.LIBRARY.get()
+        with _cuda.on_device(x):
+            code = lib.prt_passthrough(x.data_ptr(), out.data_ptr(),
+                                       x.numel(), _cuda.stream_handle(x))
         _cuda.check(code, f"prt_passthrough ({self.name})")
         self.launches += 1
         return out

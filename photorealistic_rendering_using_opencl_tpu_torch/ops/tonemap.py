@@ -17,7 +17,10 @@ from photorealistic_rendering_using_opencl_tpu_torch.ops.math import smoothstep
 
 _W = 1.2
 _T2 = 7.5
-_INT_MAX = 2**31 - 1
+# K2 indexes a launch's floats in 32 bits, so an image is launched in bands
+# of at most this many pixels (3 floats each, so 3 * BAND_PIXELS < 2^31): a
+# multiple of 4, so every band of a 16-byte-aligned image starts aligned
+BAND_PIXELS = 1 << 29
 
 
 def filmic_reinhard_curve(x):
@@ -49,9 +52,19 @@ def tonemap_plain(img: torch.Tensor, vignette: bool = True,
     return torch.pow(torch.clamp(color, 0.0, 1.0), 1.0 / 2.2)
 
 
+def bands(h: int, w: int) -> list[tuple[int, int, int, int]]:
+    """K2's launches over an [h, w, 3] image: (first pixel, pixels, the
+    first pixel's row, its column) of each band of at most BAND_PIXELS
+    consecutive pixels."""
+    n = h * w
+    return [(p0, min(BAND_PIXELS, n - p0), *divmod(p0, w))
+            for p0 in range(0, n, BAND_PIXELS)]
+
+
 class _TonemapKernel:
-    """Wrapper of ``prt_tonemap`` (csrc/tonemap.cu).  ``launches`` counts
-    kernel launches and nothing else."""
+    """Wrapper of ``prt_tonemap`` (csrc/tonemap.cu), one launch a band (one
+    for images up to BAND_PIXELS pixels).  ``launches`` counts kernel
+    launches and nothing else."""
 
     def __init__(self):
         self.launches = 0
@@ -61,18 +74,19 @@ class _TonemapKernel:
             raise ValueError(f"tonemap: expected [H,W,3], got {tuple(img.shape)}")
         h, w = img.shape[0], img.shape[1]
         _cuda.require(img, "img", torch.float32, (h, w, 3), img.device)
-        if 3 * h * w > _INT_MAX:
-            raise ValueError(f"tonemap: {h}x{w} pixels exceed the kernel's "
-                             "32-bit float index (3*H*W <= 2^31 - 1)")
         out = torch.empty_like(img)
         if h * w == 0:
             return out
         lib = _cuda.LIBRARY.get()
-        code = lib.prt_tonemap(img.data_ptr(), out.data_ptr(), h, w,
-                               float(brightness), int(bool(vignette)),
-                               _cuda.stream_handle(img))
-        _cuda.check(code, "prt_tonemap")
-        self.launches += 1
+        src, dst = img.data_ptr(), out.data_ptr()
+        for p0, n, y0, x0 in bands(h, w):
+            with _cuda.on_device(img):
+                code = lib.prt_tonemap(src + 12 * p0, dst + 12 * p0, n, w, h,
+                                       y0, x0, float(brightness),
+                                       int(bool(vignette)),
+                                       _cuda.stream_handle(img))
+            _cuda.check(code, "prt_tonemap")
+            self.launches += 1
         return out
 
 

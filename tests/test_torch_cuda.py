@@ -524,3 +524,174 @@ def test_scan_render_on_card_matches_cpu(cuda):
         assert launched == (2 * (4 + 1) if dev == cuda else 0)
         imgs.append(img.cpu())
     torch.testing.assert_close(imgs[1], imgs[0], rtol=1e-5, atol=1e-5)
+
+
+def _t1_case(dev, case, block):
+    """T1 inputs for one edge case -> (words, pack, feat): the icosphere
+    tables (10 tiles) with random rays at several ragged N; the same
+    tables with all-zero and with all-one words (bits 10-31 of the one
+    word lie past the table: ignored); and a table with empty tiles (a
+    300-triangle mesh, whose third tile is a third padding, and three
+    all-zero tiles between the others) with every bit set."""
+    bp, (feat, clusters, _) = _tables(dev)
+    rng = np.random.default_rng(block)
+    n = {"ragged": 1000, "zero words": 600, "all bits": 600,
+         "empty tiles": 700}[case]
+    o = torch.from_numpy(rng.uniform(-2, 2, (n, 3)).astype(np.float32)).to(dev)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d = torch.from_numpy(d / np.linalg.norm(d, axis=1, keepdims=True)).to(dev)
+    t_init = torch.from_numpy(rng.uniform(0.5, 20, n).astype(np.float32)).to(dev)
+    act = torch.from_numpy(rng.uniform(size=n) > 0.1).to(dev)
+    pack = mesh_brute.matmul_only_pack(o, d, t_init)
+    if case == "empty tiles":
+        tv, tn = make_icosphere(subdiv=3, radius=0.8, center=(0.1, -0.2, 0.3))
+        small = torch.from_numpy(mesh_brute.pack_brute(tv[:300], tn[:300]).feat)
+        z = torch.zeros((mesh_brute.FEAT, 4 * mesh_brute.TILE))
+        t = [small[:, k * 512:(k + 1) * 512] for k in range(3)]
+        feat = torch.cat([t[0], z, t[1], z, z, t[2]], dim=1).contiguous().to(dev)
+    nt = feat.shape[1] // (4 * mesh_brute.TILE)
+    rows = -(-n // block)
+    if case == "ragged":
+        return [(mesh_brute.relevance_words(clusters, o[:m], d[:m],
+                                            t_init[:m], act[:m], block),
+                 pack[:, :m].contiguous(), feat)
+                for m in (1, 100, block - 1, block + 1, 2 * block + 7, n)]
+    fill = 0 if case == "zero words" else -1
+    words = torch.full((rows, -(-nt // 32)), fill, dtype=torch.int32,
+                       device=dev)
+    return [(words, pack, feat)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [128, 256])
+@pytest.mark.parametrize("case", ["ragged", "zero words", "all bits",
+                                  "empty tiles"])
+def test_t1_edge_cases_match_plain(cuda, case, block):
+    """T1 against its plain version within 1e-5 of each ray's sum of
+    absolute terms, one launch a call, the index output all zero: N below
+    one block, ragged last warps and blocks, words with no bit (the sum is
+    exactly 0), words with every bit (those past the table ignored), and
+    a table with empty and part-padding tiles."""
+    summed = 0
+    for words, pack, feat in _t1_case(cuda, case, block):
+        before = mesh_brute.matmul_only_kernel.launches
+        t, i = mesh_brute.matmul_only(words, pack, feat, block)
+        assert mesh_brute.matmul_only_kernel.launches == before + 1
+        want, _ = mesh_brute.matmul_only_plain(words, pack, feat, block)
+        scale, _ = mesh_brute.matmul_only_plain(words, pack.abs(),
+                                                feat.abs(), block)
+        assert t.shape == want.shape and not i.any()
+        if case == "zero words":
+            assert not t.any()
+            continue
+        summed += int((scale > 0).sum())
+        err = (t - want).abs()
+        assert not err[scale == 0].any()
+        assert float((err / scale.clamp(min=1e-30)).max()) <= 1e-5
+    assert summed > 0 or case == "zero words"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [32, 64, 128, 256, 512, 1024])
+def test_k3_every_block_bitwise(cuda, block):
+    """K3 bitwise against its plain version on the card and on the CPU at
+    every block it takes: whole and ragged grids of 1,024-flag CTAs, flag
+    densities 0, 0.5 and 1, int32 wrap-around (values near 2^30 summed
+    past 2^31), and a flags view that starts off a 16-byte boundary; then
+    ragged N through exclusive_prefix_sum."""
+    rng = np.random.default_rng(block + 1)
+    inputs = []
+    for nb in (1, 2, 3, 5, 257, 1000):
+        for density in (0.0, 0.5, 1.0):
+            inputs.append((rng.uniform(size=nb * block) < density)
+                          .astype(np.int32))
+    inputs.append(rng.integers(2**29, 2**30, 7 * block).astype(np.int32))
+    for f in inputs:
+        f_card = torch.from_numpy(f).to(cuda)
+        before = compaction.block_scan_kernel.launches
+        scans, totals = compaction.block_scan(f_card, block)
+        assert compaction.block_scan_kernel.launches == before + 1
+        for want in (compaction.block_scan_plain(f_card, block),
+                     compaction.block_scan_plain(torch.from_numpy(f), block)):
+            assert torch.equal(scans.cpu(), want[0].cpu())
+            assert torch.equal(totals.cpu(), want[1].cpu())
+    view = torch.from_numpy(inputs[-1]).to(cuda)[1:1 + 6 * block]
+    assert view.data_ptr() % 16 and view.is_contiguous()
+    got = compaction.block_scan(view, block)
+    want = compaction.block_scan_plain(view.cpu(), block)
+    assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(),
+                                                              want[1])
+    for n in (1, block - 1, 5 * block + 3, 40000):
+        f = torch.from_numpy((rng.uniform(size=n) < 0.5).astype(np.int32))
+        scan, total = compaction.exclusive_prefix_sum(f.to(cuda), block)
+        want, want_total = compaction.exclusive_prefix_sum(f, block)
+        assert torch.equal(scan.cpu(), want) and int(total) == int(want_total)
+
+
+@pytest.mark.cuda
+def test_k2_bands_match_plain(cuda):
+    """Images launched in bands of 4,100 pixels (chip_smoke.k2_banded cuts
+    BAND_PIXELS down), so that bands start inside rows and the vignette
+    needs each band's row and column: against the plain version, vignette
+    on and off, NaN in the same channels and the rest within 1e-6."""
+    cs = _chip_smoke()
+    sides = ((512, 512), (47, 333), (101, 97))
+    cases = {f"{h}x{w}": torch.from_numpy(cs.k2_edge_image(h, w, h * w))
+             .to(cuda) for h, w in sides}
+    before = tm.tonemap_kernel.launches
+    assert cs.k2_banded(tm, cases) <= 1e-6
+    # a launch a band, at vignette on and off: 64 + 4 + 3 bands
+    assert tm.tonemap_kernel.launches - before == 2 * sum(
+        -(-h * w // cs.K2_SMALL_BAND) for h, w in sides) == 142
+    assert tm.BAND_PIXELS == 1 << 29
+
+
+@pytest.mark.cuda
+def test_k2_image_past_int32_matches_plain(cuda):
+    """One 26755 x 26755 image (3*H*W = 2,147,490,075 > 2^31 - 1; 8.6 GB in
+    and out), vignette off, launched in two bands: rows at its ends and
+    around the band boundary against the plain version of those rows
+    (chip_smoke.k2_huge, which fails on any NaN difference or one above
+    1e-6)."""
+    before = tm.tonemap_kernel.launches
+    assert _chip_smoke().k2_huge(tm, cuda) <= 1e-6
+    assert tm.tonemap_kernel.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_the_tensors_device(cuda):
+    """With cuda:0 current and every tensor on cuda:1, each kernel runs on
+    cuda:1 and agrees with its plain version (K1 with its twin).  Skips
+    on a machine with one card."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    dev = torch.device("cuda", 1)
+    with torch.cuda.device(0):
+        bp, (feat, clusters, _) = _tables(dev)
+        lanes = _batch("random", bp, dev)
+        t, tri = mesh_brute.mesh_intersect(feat, clusters, *lanes[:3],
+                                           active=lanes[3], any_hit=lanes[4],
+                                           exclude=lanes[5])
+        _assert_like_twin(feat, clusters, *lanes, t, tri)
+        img = torch.from_numpy(np.random.default_rng(2).uniform(
+            0, 3, (64, 48, 3)).astype(np.float32)).to(dev)
+        torch.testing.assert_close(tm.tonemap(img), tm.tonemap_plain(img),
+                                   rtol=0, atol=1e-6)
+        f = (torch.arange(3000, device=dev) % 3 == 0).to(torch.int32)
+        scan, total = compaction.exclusive_prefix_sum(f, 256)
+        want, want_total = compaction.exclusive_prefix_sum(f.cpu(), 256)
+        assert torch.equal(scan.cpu(), want) and int(total) == int(want_total)
+        words = mesh_brute.relevance_words(clusters, *lanes[:3], lanes[3],
+                                           128)
+        pack = mesh_brute.matmul_only_pack(*lanes[:3])
+        got, _ = mesh_brute.matmul_only(words, pack, feat, 128)
+        plain, _ = mesh_brute.matmul_only_plain(words, pack, feat, 128)
+        scale, _ = mesh_brute.matmul_only_plain(words, pack.abs(),
+                                                feat.abs(), 128)
+        assert float(((got - plain).abs() / scale.clamp(min=1e-30)).max()) <= 1e-5
+        x = lanes[0].clone()
+        assert torch.equal(passthrough.passthrough(x), x)
+        flat = torch.arange(1280, dtype=torch.float32, device=dev)
+        assert torch.equal(passthrough.passthrough_flat(flat), flat)
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(dev)

@@ -130,3 +130,45 @@ def test_medium_and_big_mesh_raise():
            np.zeros((262145, 3, 3), np.float32))
     with pytest.raises(NotImplementedError, match="M12"):
         loader.build_scene(doc, mesh_override=big, device="cpu")
+
+
+def _horizon_warnings(tmp_path, spheres):
+    """Load a scene of ``spheres`` (a JSON file under tmp_path) with both
+    packages -> (the reference warned, the port warned) about RAY_INF."""
+    import json
+    import warnings
+    path = tmp_path / "scene.json"
+    path.write_text(json.dumps({"settings": {"MAX_BOUNCES": 2},
+                                "scene": {"spheres": spheres}}))
+    warned = []
+    for load in (j_loader.load_scene,
+                 lambda p: loader.load_scene(p, device="cpu")):
+        with warnings.catch_warnings(record=True) as got:
+            warnings.simplefilter("always")
+            load(str(path))
+        warned.append(any("RAY_INF" in str(w.message) for w in got))
+    return tuple(warned)
+
+
+def test_horizon_warning_in_bounds_scene(tmp_path):
+    """A radius-0.1 sphere 8.5 units out and a radius-1 sphere at the
+    origin: nothing reaches past 0.45 * RAY_INF = 9 (8.6 and 1), but the
+    reference adds the largest coordinate to the largest radius (8.5 + 1 =
+    9.5 > 9) and warns; the port, reach per object, does not."""
+    from photorealistic_rendering_using_opencl_tpu_torch.ops.math import RAY_INF
+    spheres = [{"pos": [8.5, 0.0, 0.0], "radius": 0.1},
+               {"pos": [0.0, 0.0, 0.0], "radius": 1.0}]
+    pos = np.array([s["pos"] for s in spheres])
+    radius = np.array([s["radius"] for s in spheres])
+    # the reference's formula (its scene/loader.py) and the true reach
+    assert np.abs(pos).max() + np.abs(radius).max() > 0.45 * RAY_INF
+    assert (np.linalg.norm(pos, axis=1) + radius).max() < 0.45 * RAY_INF
+    assert _horizon_warnings(tmp_path, spheres) == (True, False)
+
+
+def test_horizon_warning_far_scene(tmp_path):
+    """A sphere reaching 10 units out (centre 9.5, radius 0.5), past
+    0.45 * RAY_INF: both packages warn."""
+    spheres = [{"pos": [0.0, 0.0, 9.5], "radius": 0.5},
+               {"pos": [0.0, 1.0, 0.0], "radius": 0.3}]
+    assert _horizon_warnings(tmp_path, spheres) == (True, True)
