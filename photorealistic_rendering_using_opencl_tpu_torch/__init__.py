@@ -11,9 +11,11 @@ Layout:
                K1), BSDFs, lights, tonemap (+ the display kernel K2) and
                the CUDA build and loader ``_cuda.py``
     scene/     scene types, JSON loader, OBJ import, BVH build (host)
-    models/    integrator and the path-regeneration render loop
-    runtime/   the shared native (C++) host library: BVH build, OBJ parser
-    utils/     image IO
+    models/    integrator, the render loops, progressive accumulation, AOVs
+    runtime/   the command line (``python -m`` this package), the interactive
+               camera, checkpoints, terminal frames, and the shared native
+               (C++) host library: BVH build, OBJ parser
+    utils/     device choice, image IO (PNG, HDR), config manifest, metrics
     csrc/      CUDA sources of the kernels
 
 The package never imports ``jax``.

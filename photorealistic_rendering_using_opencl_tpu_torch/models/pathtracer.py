@@ -3,8 +3,10 @@
 Port of ``photorealistic_rendering_using_opencl_tpu/models/pathtracer.py``:
 ``pixel_grid``, ``camera_rays_for_sample``, ``render_sample``,
 ``_regen_carry0``, ``_regen_step`` (as the two halves below),
-``trace_regen``, ``trace_regen_scan``, ``calibrate_regen_iters`` and
-``render(method="scan" | "while" | "regen" | "regen_scan")``.
+``trace_regen``, ``trace_regen_scan``, ``calibrate_regen_iters``,
+``render(method="scan" | "while" | "regen" | "regen_scan")``, the
+progressive API (``ProgressiveState``, ``progressive_init`` / ``reset`` /
+``step`` / ``image``) and the debug AOVs (``render_aov``).
 
 ``scan`` (the default, differentiable) and ``while`` (forward only) loop
 over the samples, each one ``integrator.trace`` of every pixel.  The
@@ -24,10 +26,11 @@ the dispatch's result as the segment's boundary, so the backward pass
 recomputes the shading and never the traversal (the reference saves its
 named "hit" records for the same reason).
 
-BDPT (ROADMAP M13), AOVs and progressive rendering (M8) are not ported
-yet.
+BDPT is ROADMAP M13.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -35,9 +38,12 @@ from torch.utils.checkpoint import checkpoint
 from photorealistic_rendering_using_opencl_tpu_torch.models import integrator
 from photorealistic_rendering_using_opencl_tpu_torch.ops import camera_rays, intersect
 from photorealistic_rendering_using_opencl_tpu_torch.ops.math import RAY_INF
-from photorealistic_rendering_using_opencl_tpu_torch.ops.rng import Sampler
+from photorealistic_rendering_using_opencl_tpu_torch.ops.rng import MASK32, Sampler
 from photorealistic_rendering_using_opencl_tpu_torch.scene.types import (
     SceneConfig, SceneData,
+)
+from photorealistic_rendering_using_opencl_tpu_torch.utils.device import (
+    DEFAULT_DEVICE, resolve_device,
 )
 
 _OTHER_METHODS = {"bdpt": "M13"}
@@ -366,3 +372,105 @@ def calibrate_regen_iters(cfg: SceneConfig, scene: SceneData, cam_pytree,
                          seed, rng_scheme, jitter, return_iters=True)[2]
     chunk = integrator.SCAN_CHUNK
     return -(-max(int(it * margin), 1) // chunk) * chunk
+
+
+# ---------------------------------------------------------------------------
+# Progressive (interactive-parity) API
+# ---------------------------------------------------------------------------
+
+class ProgressiveState(NamedTuple):
+    acc: torch.Tensor  # [H,W,3] radiance sum
+    alpha: torch.Tensor  # [H,W] alpha sum
+    samples: torch.Tensor  # [] int64: accumulated sample count (a uint32)
+    seed: torch.Tensor  # [] int64 holding the uint32 seed
+
+
+def progressive_init(width: int, height: int, seed: int = 0, *,
+                     device=DEFAULT_DEVICE) -> ProgressiveState:
+    """An empty accumulation on ``device`` (the card unless the caller asks
+    for the CPU); ``seed`` wraps to uint32, as the reference's does."""
+    dev = resolve_device(device)
+    return ProgressiveState(
+        acc=torch.zeros((height, width, 3), dtype=torch.float32, device=dev),
+        alpha=torch.zeros((height, width), dtype=torch.float32, device=dev),
+        samples=torch.zeros((), dtype=torch.int64, device=dev),
+        seed=torch.tensor(int(seed) & MASK32, dtype=torch.int64, device=dev),
+    )
+
+
+def progressive_reset(state: ProgressiveState) -> ProgressiveState:
+    """Camera-moved reset (the reference's buffer_reset): the sums and the
+    count go to zero, the seed stays."""
+    return ProgressiveState(
+        acc=torch.zeros_like(state.acc), alpha=torch.zeros_like(state.alpha),
+        samples=torch.zeros_like(state.samples), seed=state.seed)
+
+
+@torch.no_grad()
+def progressive_step(cfg: SceneConfig, scene: SceneData, cam_pytree,
+                     state: ProgressiveState, rng_scheme: str = "pcg4d"
+                     ) -> ProgressiveState:
+    """One more sample of every pixel, added to the state (functional: the
+    input state is left untouched).  Interactive accumulation never
+    differentiates, so it takes the early-exit ``while`` bounce loop: on the
+    card K1 launches once per dispatch, 1 + the bounces run."""
+    height, width = state.acc.shape[0], state.acc.shape[1]
+    rad, alpha = render_sample(cfg, scene, cam_pytree, width, height,
+                               state.samples, state.seed, rng_scheme,
+                               method="while")
+    return ProgressiveState(
+        acc=state.acc + rad.reshape(height, width, 3),
+        alpha=state.alpha + alpha.reshape(height, width),
+        samples=(state.samples + 1) & MASK32,
+        seed=state.seed,
+    )
+
+
+def progressive_image(state: ProgressiveState):
+    """The running mean -> (hdr [H,W,3], alpha [H,W]).  The count is read
+    to the host and divides as ``render``'s spp does (on CUDA a division
+    by a host number is a product with its reciprocal), so the mean of n
+    steps is bitwise ``render(method="while")`` at n spp."""
+    s = max(int(state.samples), 1)
+    return state.acc / s, state.alpha / s
+
+
+# ---------------------------------------------------------------------------
+# Debug AOVs (the reference's VIEW_NORMAL / VIEW_ALBEDO / VIEW_BVH_HIT)
+# ---------------------------------------------------------------------------
+
+AOV_MODES = ("normal", "albedo", "depth", "mesh_id", "traversal")
+
+
+@torch.no_grad()
+def render_aov(cfg: SceneConfig, scene: SceneData, cam_pytree,
+               width: int, height: int, mode: str = "normal", seed=0):
+    """One unjittered primary ray a pixel -> [H,W,3]; ``mode`` in
+    AOV_MODES.  Misses are 0 in every mode but ``traversal``: a heatmap of
+    the tiles each ray enters, normalised by the frame's largest count (red
+    hot, green cold)."""
+    if mode not in AOV_MODES:
+        raise ValueError(mode)
+    px, py = pixel_grid(width, height, scene.device)
+    pixel_idx = py * width + px
+    origin, direction = camera_rays_for_sample(
+        cam_pytree, width, height, px, py, pixel_idx, 0, seed, jitter=False)
+    if mode == "traversal":
+        steps = intersect.traversal_cost(cfg, scene, origin, direction)
+        h = steps.to(torch.float32) / torch.clamp(
+            steps.max().to(torch.float32), min=1.0)
+        out = torch.stack([h, 1.0 - h, torch.zeros_like(h)], dim=-1)
+        return out.reshape(height, width, 3)
+    hit = intersect.intersect_scene(cfg, scene, origin, direction)
+    if mode == "normal":
+        out = hit.normal * 0.5 + 0.5
+    elif mode == "albedo":
+        out = integrator.gather_material(cfg, scene, hit.mesh_id).color
+    elif mode == "depth":
+        out = torch.broadcast_to(hit.t[..., None], hit.normal.shape)
+    else:  # mesh_id
+        out = torch.broadcast_to(
+            (hit.mesh_id[..., None].to(torch.float32) + 1.0)
+            / (cfg.n_objects + 2), hit.normal.shape)
+    out = torch.where(hit.valid[..., None], out, 0.0)
+    return out.reshape(height, width, 3)

@@ -515,6 +515,23 @@ def intersect_and_shadow(cfg: SceneConfig, scene: SceneData, origin,
 
 
 @torch.no_grad()
+def traversal_cost(cfg: SceneConfig, scene: SceneData, origin, direction):
+    """Per-ray traversal work estimate for the debug AOV (the reference's
+    VIEW_STACK_INDEX heatmap) -> [N] int32: the number of tiles the ray
+    enters (``mesh_brute.ray_cluster_count``), 0 without a mesh.  The bvh
+    backend's node-visit count needs the BVH walk, ROADMAP M12."""
+    n = origin.shape[0]
+    if not cfg.has_mesh:
+        return torch.zeros((n,), dtype=torch.int32, device=origin.device)
+    if cfg.mesh_accel != "brute":
+        raise NotImplementedError("traversal_cost for mesh_accel="
+                                  f"{cfg.mesh_accel!r} needs the BVH walk, "
+                                  "ROADMAP M12")
+    return mesh_brute.ray_cluster_count(scene.bf_clusters, origin, direction,
+                                        RAY_INF)
+
+
+@torch.no_grad()
 def shadow_visible(cfg: SceneConfig, scene: SceneData, origin, direction,
                    max_dist, active=None, exclude_tri=None) -> torch.Tensor:
     """True where the segment [origin, origin + direction * max_dist] is

@@ -325,6 +325,39 @@ def relevance_words(clusters, origin, direction, t_init, active, block):
                             nblocks, block, pad=nblocks * block - n)
 
 
+# rays a chunk of ray_cluster_count: its [chunk, nt, 3] temporaries are
+# 12 * chunk * nt bytes each (94 MB at cornell_hi's 640 tiles)
+CLUSTER_COUNT_CHUNK = 32768
+
+
+def ray_cluster_count(clusters, origin, direction, t_init):
+    """Per-ray count of tiles whose AABB the ray enters closer than
+    ``t_init`` -> [N] int32: the brute backend's traversal-cost metric for
+    the debug AOV (the reference's VIEW_STACK_INDEX analogue).  The
+    reference's broadcast, with its order of operations (so the counts are
+    bitwise), over CLUSTER_COUNT_CHUNK rays at a time: at 1024^2 rays on
+    cornell_hi one [N, nt, 3] temporary would take 7.5 GB."""
+    n = origin.shape[0]
+    chunk = CLUSTER_COUNT_CHUNK
+    t_init = torch.broadcast_to(torch.as_tensor(
+        t_init, dtype=torch.float32, device=origin.device), (n,))
+    out = []
+    for s in range(0, n, chunk):
+        o, d = origin[s:s + chunk], direction[s:s + chunk]
+        safe = torch.where(d.abs() < 1e-12,
+                           torch.where(d >= 0.0, 1e-12, -1e-12), d)
+        inv_d = 1.0 / safe
+        lo = (clusters[None, :, 0:3] - o[:, None, :]) * inv_d[:, None, :]
+        hi = (clusters[None, :, 3:6] - o[:, None, :]) * inv_d[:, None, :]
+        ent = torch.clamp(torch.amax(torch.minimum(lo, hi), dim=-1), min=EPS)
+        ext = torch.amin(torch.maximum(lo, hi), dim=-1)
+        rel = ent <= torch.minimum(ext, t_init[s:s + chunk, None])
+        out.append(rel.sum(dim=-1, dtype=torch.int32))
+    if not out:
+        return torch.zeros((0,), dtype=torch.int32, device=origin.device)
+    return torch.cat(out)
+
+
 def matmul_only_pack(origin, direction, t_init):
     """The reference tool's transposed ray pack [FEAT, N]: the ray features
     [o, d, d x o, 1] with t_init and the active flag (1) in rows 10 and 11;

@@ -1,20 +1,27 @@
-"""Counter-based parallel RNG: PCG4D keyed on (pixel, sample, dim, seed).
+"""Counter-based parallel RNG keyed on (pixel, sample, dim, seed).
 
-Port of the pcg4d path of ``photorealistic_rendering_using_opencl_tpu/ops/rng.py``.
-Every random decision draws from a fixed dimension index, so an image does
-not depend on the schedule that rendered it.
+Port of ``photorealistic_rendering_using_opencl_tpu/ops/rng.py``: its three
+schemes, with the same words.  Every random decision draws from a fixed
+dimension index, so an image does not depend on the schedule that rendered
+it.
+
+  * "pcg4d": the PCG4D hash of Jarzynski & Olano, four words a hash (the
+    default of the render entry points).
+  * "threefry": threefry2x32, 20 rounds, one hash a draw.
+  * "mwc": a dual 16-bit multiply-with-carry hash, one hash a draw.
 
 uint32 arithmetic is emulated in int64 with ``& 0xFFFFFFFF``: torch on the
 CPU has no uint32 add or shifts.  Every intermediate stays below 2**63, so
-the words are bitwise those of the reference; products are split into
-16-bit halves for that reason.  The ``threefry`` and ``mwc`` schemes are
-ROADMAP M2, continued.
+the words are bitwise those of the reference: every u32 x u32 product goes
+through ``mul32`` (16-bit halves), and every left shift is masked.
 """
 from __future__ import annotations
 
 import torch
 
 MASK32 = 0xFFFFFFFF
+
+SCHEMES = ("pcg4d", "threefry", "mwc")
 
 
 def _u32(x) -> torch.Tensor:
@@ -26,6 +33,34 @@ def mul32(a: torch.Tensor, b) -> torch.Tensor:
     lo = (a & 0xFFFF) * b
     hi = ((a >> 16) * b) & 0xFFFF
     return (lo + (hi << 16)) & MASK32
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) & MASK32) | (x >> (32 - r))
+
+
+_THREEFRY_ROTATIONS = (13, 15, 26, 6, 17, 29, 16, 24)
+_THREEFRY_PARITY = 0x1BD11BDA
+
+
+def threefry2x32(key0, key1, x0, x1):
+    """Threefry-2x32, 20 rounds.  All args int64 tensors holding uint32
+    words, broadcastable; returns the two output words."""
+    key0, key1, x0, x1 = (_u32(v) for v in (key0, key1, x0, x1))
+    ks2 = key0 ^ key1 ^ _THREEFRY_PARITY
+    x0 = _u32(x0 + key0)
+    x1 = _u32(x1 + key1)
+    ks = (key0, key1, ks2)
+    for block in range(5):
+        for i in range(4):
+            x0 = _u32(x0 + x1)
+            x1 = _rotl(x1, _THREEFRY_ROTATIONS[(block % 2) * 4 + i])
+            x1 = x1 ^ x0
+        # key injection every 4 rounds
+        inj = block + 1
+        x0 = _u32(x0 + ks[inj % 3])
+        x1 = _u32(x1 + ks[(inj + 1) % 3] + inj)
+    return x0, x1
 
 
 def pcg4d(v: torch.Tensor) -> torch.Tensor:
@@ -47,6 +82,18 @@ def pcg4d(v: torch.Tensor) -> torch.Tensor:
     return torch.stack([x, y, z, w], dim=-1)
 
 
+def mwc_hash(x0: torch.Tensor, x1: torch.Tensor) -> torch.Tensor:
+    """Three rounds of 16-bit multiply-with-carry mixing; x0/x1 int64
+    holding uint32 words -> uint32 bits (int64)."""
+    x0 = _u32(x0)
+    x1 = _u32(x1)
+    for _ in range(3):
+        x0 = 36969 * (x0 & 0xFFFF) + (x0 >> 16)  # < 2**32: no wrap
+        x1 = 18000 * (x1 & 0xFFFF) + (x1 >> 16)
+        x0, x1 = x0 ^ ((x1 << 16) & MASK32), x1 ^ (x0 >> 3)
+    return _u32((x0 << 16) + (x1 & 0xFFFF))
+
+
 def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
     """uint32 bits (int64) -> float32 in [0, 1) via the mantissa trick."""
     word = (bits >> 9) | 0x3F800000  # < 2**31: exact in int32
@@ -63,20 +110,19 @@ class Sampler:
     """Per-ray deterministic random stream.
 
     ``pixel`` and ``sample`` index the stream; ``dim`` (auto-incremented)
-    indexes the decision.  One pcg4d hash yields four words, handed out one
-    per draw: a stream is a pure function of (pixel, sample, seed, dim)
-    with ``dim`` 4-aligned at the start.
+    indexes the decision.  pcg4d hashes once per 4-dim window and hands out
+    one word a draw; threefry and mwc hash once a draw.  A stream is a pure
+    function of (pixel, sample, seed, dim), with ``dim`` 4-aligned at the
+    start.
     """
 
-    __slots__ = ("pixel", "sample", "seed", "_dim0", "_off", "_blk",
-                 "_blk_win")
+    __slots__ = ("pixel", "sample", "seed", "scheme", "_dim0", "_off",
+                 "_blk", "_blk_win")
 
     def __init__(self, pixel: torch.Tensor, sample, seed=0,
                  scheme: str = "pcg4d", dim=0):
-        if scheme != "pcg4d":
-            raise NotImplementedError(
-                f"rng scheme {scheme!r}: only 'pcg4d' is ported "
-                "(threefry and mwc are ROADMAP M2, continued)")
+        if scheme not in SCHEMES:
+            raise ValueError(f"rng scheme {scheme!r}: one of {SCHEMES}")
         device = pixel.device
         self.pixel = _as_u32(pixel, device)
         self.sample = torch.broadcast_to(_as_u32(sample, device),
@@ -87,8 +133,14 @@ class Sampler:
             dim = torch.tensor(dim, dtype=torch.int64, device=device)
         self._dim0 = _as_u32(dim, device)
         self._off = 0  # draws consumed so far
-        self._blk = None
+        self.scheme = scheme
+        self._blk = None  # pcg4d 4-word block cache (see _draw)
         self._blk_win = -1
+
+    @property
+    def dim(self) -> torch.Tensor:
+        """The next draw's dimension index (uint32 in int64)."""
+        return _u32(self._dim0 + self._off)
 
     def next1d(self) -> torch.Tensor:
         u, = self.nextnd(1)
@@ -102,18 +154,25 @@ class Sampler:
         return tuple(self._draw() for _ in range(n))
 
     def _draw(self) -> torch.Tensor:
-        win = self._off // 4
-        if self._blk_win != win:
-            base = _u32((self._dim0 >> 2) + win)
-            shape = self.pixel.shape
-            v = torch.stack([
-                self.pixel,
-                self.sample,
-                torch.broadcast_to(base, shape),
-                torch.broadcast_to(self.seed, shape),
-            ], dim=-1)
-            self._blk = pcg4d(v)
-            self._blk_win = win
-        bits = self._blk[..., self._off % 4]
+        shape = self.pixel.shape
+        if self.scheme == "threefry":
+            d = torch.broadcast_to(self.dim, shape)
+            bits, _ = threefry2x32(self.seed, d, self.pixel, self.sample)
+        elif self.scheme == "mwc":
+            bits = mwc_hash(self.pixel ^ mul32(self.seed, 0x9E3779B9),
+                            mul32(self.sample, 0x85EBCA6B) ^ self.dim)
+        else:
+            win = self._off // 4
+            if self._blk_win != win:
+                base = _u32((self._dim0 >> 2) + win)
+                v = torch.stack([
+                    self.pixel,
+                    self.sample,
+                    torch.broadcast_to(base, shape),
+                    torch.broadcast_to(self.seed, shape),
+                ], dim=-1)
+                self._blk = pcg4d(v)
+                self._blk_win = win
+            bits = self._blk[..., self._off % 4]
         self._off += 1
         return uniform_from_bits(bits)

@@ -695,3 +695,153 @@ def test_kernels_launch_on_the_tensors_device(cuda):
         assert torch.equal(passthrough.passthrough_flat(flat), flat)
         assert torch.cuda.current_device() == 0
     torch.cuda.synchronize(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["threefry", "mwc"])
+def test_other_rng_schemes_bitwise_card_vs_cpu(cuda, scheme):
+    """threefry2x32 / mwc_hash words and Sampler draws: the card's are the
+    CPU's, bit for bit, edges included."""
+    from photorealistic_rendering_using_opencl_tpu_torch.ops import rng
+    r = np.random.default_rng(71)
+    w = r.integers(0, 2 ** 32, (4096, 4), dtype=np.uint64)
+    w[:4] = [[0, 0, 0, 0], [0xFFFFFFFF] * 4, [0, 0xFFFFFFFF, 0, 0xFFFFFFFF],
+             [0xFFFFFFFF, 0, 0xFFFFFFFF, 0]]
+    cols = [torch.from_numpy(w[:, i].astype(np.int64)) for i in range(4)]
+    card = [c.to(cuda) for c in cols]
+    if scheme == "threefry":
+        want, got = rng.threefry2x32(*cols), rng.threefry2x32(*card)
+    else:
+        want, got = [rng.mwc_hash(*cols[:2])], [rng.mwc_hash(*card[:2])]
+    for a, b in zip(want, got):
+        assert torch.equal(a, b.cpu())
+    dim = cols[2] % 2 ** 28 * 4
+    for seed in (0, 0xFFFFFFFF):
+        s_c = rng.Sampler(cols[0], cols[1], seed=seed, scheme=scheme, dim=dim)
+        s_d = rng.Sampler(card[0], card[1], seed=seed, scheme=scheme,
+                          dim=dim.to(cuda))
+        for _ in range(5):
+            assert s_c.next1d().numpy().tobytes() == s_d.next1d().cpu().numpy().tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["pcg4d", "threefry", "mwc"])
+def test_progressive_on_card_matches_cpu(cuda, scheme):
+    """progressive_step on cornell_simple (4 bounces) with each scheme:
+    the card's image (the running mean) within 1e-5 of the CPU's, the
+    repo's <= 4-bounce bound on images; samples and seed equal.  The
+    3-sample sum differs by up to 2.5e-5 of its value at one pixel (mwc;
+    image 9.8e-6): 1-ulp differences of six ops, carried along its path
+    (test_progressive_on_card_is_cpu_but_for_six_ops)."""
+    path = os.path.join(REPO, "scenes/cornell_simple.json")
+    states = {}
+    for dev in (cuda, torch.device("cpu")):
+        cfg, sc = load_scene(path, device=dev)
+        cam = default_camera(32, 24).pytree(dev)
+        st = pathtracer.progressive_init(32, 24, seed=0xFFFFFFF0, device=dev)
+        for _ in range(3):
+            st = pathtracer.progressive_step(cfg, sc, cam, st, rng_scheme=scheme)
+        states[dev.type] = st
+    card, cpu = states["cuda"], states["cpu"]
+    assert card.acc.device.type == "cuda"
+    assert int(card.samples) == int(cpu.samples) == 3
+    assert int(card.seed) == int(cpu.seed) == 0xFFFFFFF0
+    for a, b in zip(pathtracer.progressive_image(card),
+                    pathtracer.progressive_image(cpu)):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["pcg4d", "threefry", "mwc"])
+def test_progressive_on_card_is_cpu_but_for_six_ops(cuda, scheme):
+    """The cause of the card-vs-CPU gap above: with the six ATen ops of
+    chip_smoke.CARD_OTHER_BITS_OPS evaluated on the CPU (sin, cos, tan,
+    sqrt, a division by a Python number, a 3-term sum), the card's
+    progressive state after 3 steps is bitwise the CPU's.  Every other op
+    of the frame gives the card the CPU's bits."""
+    cs = _chip_smoke()
+    want = cs.census_run(torch.device("cpu"), scheme)()
+    got = cs.ops_on_cpu(cs.census_run(cuda, scheme),
+                        set(cs.CARD_OTHER_BITS_OPS))
+    assert got.acc.device.type == "cuda"
+    assert torch.equal(got.acc.cpu(), want.acc)
+    assert torch.equal(got.alpha.cpu(), want.alpha)
+    assert int(got.samples) == int(want.samples) == cs.CENSUS_STEPS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["mesh_id", "traversal", "normal"])
+def test_render_aov_on_card_matches_cpu(cuda, mode):
+    """The AOVs of the icosphere scene (K1 on the card, its twin on the
+    CPU): mesh_id and traversal bitwise, normal within 1e-5."""
+    path = os.path.join(REPO, "scenes/cornell.json")
+    mesh = make_icosphere(subdiv=2, radius=0.6, center=(0.0, -1.0, 0.0))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        cfg, sc = load_scene(path, mesh_override=mesh, device=dev)
+        out[dev.type] = pathtracer.render_aov(
+            cfg, sc, default_camera(40, 40).pytree(dev), 40, 40, mode=mode).cpu()
+    if mode == "normal":
+        torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-5, atol=1e-5)
+    else:
+        assert torch.equal(out["cuda"], out["cpu"])
+    assert out["cuda"].any()
+
+
+@pytest.mark.cuda
+def test_ray_cluster_count_on_card_bitwise(cuda, monkeypatch):
+    bp, (feat, clusters, _) = _tables(cuda)
+    o, d = _batch("random", bp, cuda)[:2]
+    want = mesh_brute.ray_cluster_count(clusters.cpu(), o.cpu(), d.cpu(), RAY_INF)
+    monkeypatch.setattr(mesh_brute, "CLUSTER_COUNT_CHUNK", 77)
+    got = mesh_brute.ray_cluster_count(clusters, o, d, RAY_INF)
+    assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_cli_in_process_on_card(cuda, tmp_path):
+    """app.main on the card: K1 once per dispatch (bounces + one camera
+    dispatch a sample), K2 once at export, the image bitwise
+    render(method="while"), its PNG the same quantisation of the CPU's
+    tonemap within 1 LSB."""
+    import contextlib
+    from photorealistic_rendering_using_opencl_tpu_torch.models import integrator
+    from photorealistic_rendering_using_opencl_tpu_torch.runtime import app
+    from photorealistic_rendering_using_opencl_tpu_torch.runtime.camera import (
+        InteractiveCamera,
+    )
+    from photorealistic_rendering_using_opencl_tpu_torch.runtime.checkpoint import (
+        load_checkpoint,
+    )
+    from photorealistic_rendering_using_opencl_tpu_torch.utils.image import read_png
+    bounces = [0]
+    real = integrator._trace_shade
+
+    def shade(*a, **k):
+        bounces[0] += 1
+        return real(*a, **k)
+
+    ck, png = str(tmp_path / "c.npz"), str(tmp_path / "c.png")
+    integrator._trace_shade = shade
+    try:
+        mesh_brute.mesh_brute_kernel.launches = 0
+        tm.tonemap_kernel.launches = 0
+        with contextlib.chdir(REPO):
+            assert app.main(["-scene", "scenes/cornell_hi.json", "-width", "96",
+                             "-height", "64", "-spp", "3", "--checkpoint", ck,
+                             "-o", png]) == 0
+        k1, k2 = mesh_brute.mesh_brute_kernel.launches, tm.tonemap_kernel.launches
+    finally:
+        integrator._trace_shade = real
+    assert k1 == bounces[0] + 3 and k2 == 1
+    state, _, _ = load_checkpoint(ck, device=cuda)
+    cfg, sc = load_scene(os.path.join(REPO, "scenes/cornell_hi.json"),
+                         models_dir=os.path.join(REPO, "scenes/assets"),
+                         device=cuda)
+    cam = InteractiveCamera(resolution=(96, 64)).build_render_camera().pytree(cuda)
+    with torch.no_grad():
+        want, want_a = pathtracer.render(cfg, sc, cam, 96, 64, 3, method="while")
+    img, alpha = pathtracer.progressive_image(state)
+    assert torch.equal(img, want) and torch.equal(alpha, want_a)
+    plain = app.ldr_u8(tm.tonemap_plain(img.cpu())).astype(np.int32)
+    assert np.abs(read_png(png).astype(np.int32) - plain).max() <= 1
