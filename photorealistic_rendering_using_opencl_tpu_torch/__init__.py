@@ -7,9 +7,10 @@ hand-written CUDA C++ for Hopper (``csrc/``), built with ``nvcc`` at first
 use; on CPU tensors their wrappers run the plain PyTorch twin instead.
 
 Layout:
-    ops/       math, RNG, sampling, camera, intersection (+ the mesh kernel
-               K1), BSDFs, lights, tonemap (+ the display kernel K2) and
-               the CUDA build and loader ``_cuda.py``
+    ops/       math, RNG, sampling, camera, intersection (spheres, SDFs,
+               boxes, quads, + the mesh kernel K1), BSDFs, lights, phase
+               functions, media, environment maps, tonemap (+ the display
+               kernel K2) and the CUDA build and loader ``_cuda.py``
     scene/     scene types, JSON loader, OBJ import, BVH build (host)
     models/    integrator, the render loops, progressive accumulation, AOVs
     runtime/   the command line (``python -m`` this package), the interactive

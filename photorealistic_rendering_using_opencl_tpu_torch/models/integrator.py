@@ -12,9 +12,15 @@ recomputes, and a differentiable half, so nothing needs a name.
 All lanes advance together under masks.  Light hits found by BSDF sampling
 are weighted by the power heuristic against the carried previous pdf, and
 NEE shadow rays are returned deferred so the loops can merge them into
-one mesh dispatch.  The medium and environment-map branches of the
-reference are ROADMAP M11; ``shade_step`` raises on a scene that needs
-them.
+one mesh dispatch.  With a global medium, each event first samples a
+distance in the medium: a lane that scatters takes volumetric NEE and a
+phase-function continuation instead of a surface bounce (scatter events
+do not count as bounces, so the loops run ``max_bounces`` plus a scatter
+budget).  An environment map lights rays that miss, weighted by MIS
+against its importance sampler, which also gives every surface vertex a
+second NEE shadow ray.  Random dimensions are drawn in the reference's
+order (medium 2, volumetric NEE and phase 5, surface NEE 3, env NEE 2,
+BSDF 3, roulette 1), so every stream is the reference's.
 """
 from __future__ import annotations
 
@@ -24,13 +30,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from photorealistic_rendering_using_opencl_tpu_torch.ops import (
-    bsdf as bsdf_ops, intersect, lights,
+    bsdf as bsdf_ops, envmap, intersect, lights, media, phase as phase_ops,
 )
 from photorealistic_rendering_using_opencl_tpu_torch.ops.intersect import (
     Hit, intersect_scene, shadow_visible,
 )
 from photorealistic_rendering_using_opencl_tpu_torch.ops.math import (
-    fetch_float_rows, fmax3, power_heuristic, to_global, to_local,
+    RAY_INF, fetch_float_rows, fmax3, power_heuristic, to_global, to_local,
 )
 from photorealistic_rendering_using_opencl_tpu_torch.ops.rng import Sampler
 from photorealistic_rendering_using_opencl_tpu_torch.scene.types import (
@@ -117,6 +123,24 @@ def gather_material(cfg: SceneConfig, scene: SceneData, mesh_id
     return props
 
 
+def _medium_transmittance(cfg, scene, origin, direction, dist):
+    """Shadow-segment transmittance of the static medium type."""
+    if cfg.medium_type == "exponential":
+        return media.exponential_transmittance(scene.medium_sigma_t, origin,
+                                               direction, dist)
+    return media.homogeneous_transmittance(scene.medium_sigma_t, dist)
+
+
+def _medium_sample_distance(cfg, scene, origin, direction, max_t,
+                            u_chan, u_dist):
+    sample = (media.exponential_sample_distance
+              if cfg.medium_type == "exponential"
+              else media.homogeneous_sample_distance)
+    return sample(scene.medium_sigma_s, scene.medium_sigma_t,
+                  cfg.medium_absorption_only, origin, direction, max_t,
+                  u_chan, u_dist)
+
+
 class NeeBatch(NamedTuple):
     """A deferred next-event-estimation shadow batch: ``weighted`` is the
     throughput-premultiplied contribution, added where active & visible."""
@@ -140,16 +164,15 @@ def _where_i(cond, a, b):
 
 def shade_step(cfg: SceneConfig, scene: SceneData, state: PathState,
                hit: Hit, sampler: Sampler):
-    """Advance every live path by one surface event.
+    """Advance every live path by one event (surface bounce or scatter).
 
     Takes the intersection of ``state``'s current ray and returns
     ``(state, nee_batches)``: the state holds the NEXT ray, and the NEE
     shadow batches wait for the render loop's merged dispatch and
     ``accumulate_nee``.
     """
-    if cfg.has_global_medium or cfg.has_env_map:
-        raise NotImplementedError("media and environment maps are "
-                                  "ROADMAP M11")
+    p_eval, p_pdf, p_sample = phase_ops.get(cfg.phase_function)
+    g = scene.phase_g
     mat = gather_material(cfg, scene, hit.mesh_id)
     alive = state.alive
     nee_batches = []
@@ -157,14 +180,73 @@ def shade_step(cfg: SceneConfig, scene: SceneData, state: PathState,
     mask = state.mask
     alpha = state.alpha
 
-    surface = alive
+    # ---------------- global medium ----------------
+    scattered = torch.zeros_like(alive)
+    vol_rec = None
+    if cfg.has_global_medium:
+        u_chan, u_dist = sampler.next2d()
+        ms = _medium_sample_distance(cfg, scene, state.origin,
+                                     state.direction, hit.t, u_chan, u_dist)
+        mask = torch.where(alive[..., None], mask * ms.weight, mask)
+        scattered = (alive & ~ms.exited
+                     & (state.n_scatter < cfg.max_scattering_events))
 
-    # ---------------- miss ----------------
+        # volumetric NEE, visibility deferred
+        vol_nee = (cfg.enable_volume_light_sampling
+                   and cfg.n_lights > 0 and cfg.enable_light_sampling)
+        u_pick, ul1, ul2, up1, up2 = sampler.nextnd(5)
+        if vol_nee:
+            li, pick_pdf = lights.pick_light(cfg, scene, u_pick)
+            rec = lights.sample_direct(cfg, scene, li, ms.p, ul1, ul2)
+            do_nee = scattered & rec.valid
+            if not cfg.low_order_scattering:
+                do_nee = do_nee & (state.n_scatter > 0)
+            f_ph = p_eval(state.direction, rec.d, g)
+            trans = _medium_transmittance(cfg, scene, ms.p, rec.d, rec.dist)
+            light_col = scene.color[li]
+            # invalid lanes carry pdf 0: 1 keeps the division's partial
+            # finite (do_nee gates the result)
+            pdf_safe = torch.where(rec.valid, torch.clamp(rec.pdf, min=1e-12),
+                                   1.0)
+            contrib = (light_col * trans * f_ph[..., None]
+                       * (power_heuristic(rec.pdf,
+                                          p_pdf(state.direction, rec.d, g))
+                          / pdf_safe)[..., None]) / pick_pdf
+            vol_rec = NeeBatch(origin=ms.p, direction=rec.d, dist=rec.dist,
+                               active=do_nee, weighted=mask * contrib)
+
+        # phase sampling continues the path
+        w_new, ph_pdf = p_sample(state.direction, up1, up2, g)
+        state = state._replace(
+            origin=torch.where(scattered[..., None], ms.p, state.origin),
+            direction=torch.where(scattered[..., None], w_new,
+                                  state.direction),
+            n_scatter=_where_i(scattered, state.n_scatter + 1,
+                               state.n_scatter),
+            prev_pdf=torch.where(scattered, ph_pdf, state.prev_pdf),
+            prev_specular=torch.where(scattered, not vol_nee,
+                                      state.prev_specular),
+            prev_did_nee=torch.where(scattered, vol_nee, state.prev_did_nee),
+        )
+
+    surface = alive & ~scattered
+
+    # ---------------- miss -> environment ----------------
     missed = surface & ~hit.valid
     if cfg.alpha_testing:
         # coverage alpha: transparent only when the PRIMARY ray escapes
         primary = (state.n_total == 0) & (state.n_scatter == 0)
         alpha = torch.where(missed & primary, 0.0, alpha)
+    elif cfg.has_env_map:
+        env = envmap.radiance(scene.env_map, state.direction)
+        w_env = 1.0
+        if cfg.env_nee:
+            # MIS against the env importance sampler at the previous vertex
+            e_pdf = envmap.env_pdf(scene.env_dist, state.direction)
+            w_env = torch.where(state.prev_specular | ~state.prev_did_nee,
+                                1.0,
+                                power_heuristic(state.prev_pdf, e_pdf))[..., None]
+        acc = acc + torch.where(missed[..., None], mask * env * w_env, 0.0)
 
     # ---------------- light hit (+ BSDF-sampling MIS) ----------------
     is_light = surface & hit.valid & ((mat.mat_type & LIGHT) != 0)
@@ -208,15 +290,56 @@ def shade_step(cfg: SceneConfig, scene: SceneData, state: PathState,
         nonzero = torch.sum(f * f, dim=-1) > 0.0
         light_col = scene.color[li]
         contrib = light_col * f
+        if cfg.has_global_medium:
+            contrib = contrib * _medium_transmittance(cfg, scene, hit.pos,
+                                                      rec.d, rec.dist)
         pdf_safe = torch.where(rec.valid, torch.clamp(rec.pdf, min=1e-12), 1.0)
         contrib = contrib * (power_heuristic(rec.pdf, b_pdf)
                              / pdf_safe)[..., None]
         contrib = contrib / pick_pdf
         take = nee_ok & nonzero
-        nee_batches.append(NeeBatch(origin=hit.pos, direction=rec.d,
-                                    dist=rec.dist, active=take,
-                                    weighted=mask * contrib))
+        surf_nee = NeeBatch(origin=hit.pos, direction=rec.d, dist=rec.dist,
+                            active=take, weighted=mask * contrib)
+        if vol_rec is not None:
+            # a lane either scattered (volumetric NEE) or reached a surface
+            # (surface NEE) this event: the two shadow rays share one slot
+            s1 = scattered[..., None]
+            surf_nee = NeeBatch(
+                origin=torch.where(s1, vol_rec.origin, surf_nee.origin),
+                direction=torch.where(s1, vol_rec.direction,
+                                      surf_nee.direction),
+                dist=torch.where(scattered, vol_rec.dist, surf_nee.dist),
+                active=torch.where(scattered, vol_rec.active,
+                                   surf_nee.active),
+                weighted=torch.where(s1, vol_rec.weighted,
+                                     surf_nee.weighted),
+            )
+        nee_batches.append(surf_nee)
         did_nee = shade & bsdf_ops.nee_capable(mat)
+    elif vol_rec is not None:
+        nee_batches.append(vol_rec)
+
+    # ---------------- env-map NEE ----------------
+    if cfg.env_nee:
+        ue1, ue2 = sampler.next2d()
+        e_dir, e_pdf = envmap.sample_env(scene.env_dist, ue1, ue2)
+        e_ok = shade & bsdf_ops.nee_capable(mat) & (e_pdf > 1e-12)
+        wo_e = to_local(hit.normal, e_dir)
+        f_e = bsdf_ops.evaluate(cfg, mat, wi, wo_e, hit.backside, hit.t)
+        b_pdf_e = bsdf_ops.pdf(cfg, mat, wi, wo_e)
+        nz_e = torch.sum(f_e * f_e, dim=-1) > 0.0
+        e_rad = envmap.radiance(scene.env_map, e_dir)
+        pdf_safe_e = torch.where(e_ok, torch.clamp(e_pdf, min=1e-12), 1.0)
+        contrib_e = e_rad * f_e * (power_heuristic(e_pdf, b_pdf_e)
+                                   / pdf_safe_e)[..., None]
+        e_dist = torch.full_like(e_pdf, RAY_INF)
+        if cfg.has_global_medium:
+            contrib_e = contrib_e * _medium_transmittance(
+                cfg, scene, hit.pos, e_dir, e_dist)
+        nee_batches.append(NeeBatch(
+            origin=hit.pos, direction=e_dir, dist=e_dist,
+            active=e_ok & nz_e, weighted=mask * contrib_e))
+        did_nee = did_nee | (shade & bsdf_ops.nee_capable(mat))
 
     u0, u1, u2 = sampler.nextnd(3)
     samp = bsdf_ops.sample(cfg, mat, wi, hit.backside, hit.t, u0, u1, u2)
@@ -374,7 +497,8 @@ def _trace_shade(cfg: SceneConfig, scene: SceneData, pixel_idx, sample_idx,
     return state, nee, _self_exclusion(cfg, hit, state, was_scatter)
 
 
-def _trace_dispatch(cfg: SceneConfig, scene: SceneData, shaded, last: bool):
+def _trace_dispatch(cfg: SceneConfig, scene: SceneData, shaded, last: bool,
+                    early_exit: bool):
     """The detached half: ONE merged dispatch of the next closest-hit rays
     and this vertex's NEE shadow rays.  On the last bounce the closest
     batch is never shaded, so its lanes go in inactive."""
@@ -383,7 +507,7 @@ def _trace_dispatch(cfg: SceneConfig, scene: SceneData, shaded, last: bool):
     rec = intersect.intersect_and_shadow_detached(
         cfg, scene, state.origin, state.direction, active,
         [(b.origin, b.direction, b.dist, b.active) for b in nee],
-        exclude_tri=excl)
+        exclude_tri=excl, early_exit=early_exit)
     return state, nee, rec
 
 
@@ -408,17 +532,20 @@ def trace(cfg: SceneConfig, scene: SceneData, origin, direction,
     a flat loop gives the same result without their dispatches.
 
     ``method="while"``: forward only (runs under ``torch.no_grad()``); it
-    stops once no lane is alive, at one host sync per bounce.  The RNG is
-    keyed on the bounce index, so both methods give the same radiance.
+    stops once no lane is alive, at one host sync per bounce, and its SDF
+    marches stop early too.  The RNG is keyed on the bounce index, so both
+    methods give the same radiance.
     """
     if method not in ("scan", "while"):
         raise ValueError(f"trace: unknown method {method!r}")
     n_steps = n_steps_for(cfg, scatter_cap)
     grad = method == "scan" and torch.is_grad_enabled()
+    early_exit = method == "while"
     with torch.set_grad_enabled(grad):
         state = init_state(origin, direction)
         rec = intersect.intersect_and_shadow_detached(
-            cfg, scene, origin, direction, state.alive, [])
+            cfg, scene, origin, direction, state.alive, [],
+            early_exit=early_exit)
         carry = (state, [], rec)
 
         def shade(c, bounce):
@@ -437,7 +564,7 @@ def trace(cfg: SceneConfig, scene: SceneData, origin, direction,
                     preserve_rng_state=False))
             else:
                 shaded = shade(carry, bounce)
-            carry = _trace_dispatch(cfg, scene, shaded, last)
+            carry = _trace_dispatch(cfg, scene, shaded, last, early_exit)
         state, nee, rec = carry
         state = accumulate_nee(state, nee, rec.visible)
     return state.acc, state.alpha

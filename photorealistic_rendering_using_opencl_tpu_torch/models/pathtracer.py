@@ -244,14 +244,17 @@ def _shade_regenerate(cfg: SceneConfig, scene: SceneData, cam_pytree,
     return (state, nee, excl, cur, pending, bounce, alpha_sum)
 
 
-def _regen_dispatch(cfg: SceneConfig, scene: SceneData, shaded):
+def _regen_dispatch(cfg: SceneConfig, scene: SceneData, shaded,
+                    early_exit: bool = True):
     """The detached half: ONE merged dispatch of the next/camera closest-hit
-    rays and the NEE shadow rays.  Returns the next iteration's carry."""
+    rays and the NEE shadow rays.  Returns the next iteration's carry.
+    ``early_exit`` lets its SDF marches stop once every lane is done (host
+    syncs; the differentiable loop passes False)."""
     state, nee, excl, cur, pending, bounce, alpha_sum = shaded
     rec = intersect.intersect_and_shadow_detached(
         cfg, scene, state.origin, state.direction, state.alive,
         [(b.origin, b.direction, b.dist, b.active) for b in nee],
-        exclude_tri=excl)
+        exclude_tri=excl, early_exit=early_exit)
     return (state, nee, rec, cur, pending, bounce, alpha_sum)
 
 
@@ -269,16 +272,16 @@ def trace_regen(cfg: SceneConfig, scene: SceneData, cam_pytree,
 
     The reference's ``while_loop`` becomes a Python loop that asks the
     device "any work left?" once per iteration (one host sync each; CUDA
-    graphs are later work).  It stops at the reference's bound of
-    ``spp * n_steps + 64`` iterations and raises if lanes are then still
-    unfinished, instead of returning a partial image.
+    graphs are later work).  It stops at ``spp * max_path_events(cfg) +
+    64`` iterations and raises if lanes are then still unfinished, instead
+    of returning a partial image.
 
     Returns per-lane (radiance_mean [N,3], alpha [N]), plus the iteration
     count when ``return_iters``.
     """
     pixel_idx = py * width + px
     n = px.shape[0]
-    max_iters = spp * integrator.n_steps_for(cfg) + 64
+    max_iters = spp * max_path_events(cfg) + 64
     carry = _regen_carry0(cfg, n, px.device)
     it = 0
     while True:
@@ -301,6 +304,19 @@ def trace_regen(cfg: SceneConfig, scene: SceneData, cam_pytree,
     return state.acc / spp, alpha_sum / spp
 
 
+def max_path_events(cfg: SceneConfig) -> int:
+    """The most events one regenerated path can take.  Without a medium
+    that is the bounce budget (``n_steps_for``), the reference's bound.  In
+    a medium, each of the ``max_bounces`` surface events (and the last
+    event) can follow up to ``max_scattering_events`` scatters, since the
+    scatter count restarts at every surface: the reference's bound of
+    ``n_steps_for`` (scatters capped at 16) is shorter than such a path and
+    cuts a frame short, which it returns partial (ROADMAP F13)."""
+    if not cfg.has_global_medium:
+        return integrator.n_steps_for(cfg)
+    return (cfg.max_bounces + 1) * (cfg.max_scattering_events + 1)
+
+
 def scan_iterations(n_iters: int) -> int:
     """Iterations ``trace_regen_scan`` runs for a budget of ``n_iters``: a
     budget above one ``SCAN_CHUNK`` rounds up to whole chunks, as the
@@ -316,7 +332,8 @@ def trace_regen_scan(cfg: SceneConfig, scene: SceneData, cam_pytree,
     """Reverse-differentiable path regeneration: ``trace_regen``'s
     iteration run a FIXED number of times under autograd.
 
-    ``scan_iterations(n_iters)`` iterations, with no "any work left?" sync;
+    ``scan_iterations(n_iters)`` iterations, with no "any work left?" sync
+    (its SDF marches run their whole budgets);
     size ``n_iters`` with ``calibrate_regen_iters``.  With a sufficient
     budget the result is the same estimator as ``trace_regen`` (the forward
     is bitwise equal); surplus iterations are no-ops (every lane idle; the
@@ -350,7 +367,8 @@ def trace_regen_scan(cfg: SceneConfig, scene: SceneData, cam_pytree,
     for _ in range(scan_iterations(n_iters)):
         shaded = checkpoint(shade, carry, use_reentrant=False,
                             preserve_rng_state=False)
-        carry = _regen_dispatch(cfg, scene, integrator._sanitize_grad(shaded))
+        carry = _regen_dispatch(cfg, scene, integrator._sanitize_grad(shaded),
+                                early_exit=False)
     state = _bank_last_nee(carry)
     cur, alpha_sum = carry[3], carry[-1]
     completed = torch.min(torch.clamp(cur, max=spp))

@@ -4,9 +4,11 @@ Port of ``photorealistic_rendering_using_opencl_tpu/ops/bsdf.py``: Lambert,
 Burley, smooth and rough conductors, smooth and rough dielectrics (with
 the ABS_REFR / ABS_REFR2 absorption variants) and the coat.  Every family
 present in ``SceneConfig.active_mats`` is evaluated for the whole batch
-and combined with masked selects, as in the reference.  A scene with a
-volume-boundary material (VOL) raises ``NotImplementedError`` (ROADMAP
-M11).
+and combined with masked selects, as in the reference.  A volume-boundary
+material (VOL, JSON type 5) has no family of its own, in the reference
+as here: its lanes keep the dispatch's zero sample (invalid, so the path
+ends there), zero value and zero pdf, a black surface that reflects
+nothing.
 
 Conventions: tangent space with the shading normal as +z; ``wi`` points
 away from the surface; ``evaluate`` returns f * |cos(theta_o)|;
@@ -33,7 +35,6 @@ from photorealistic_rendering_using_opencl_tpu_torch.scene.types import (
     DIFFUSE_REFLECTION_LOBE, FORWARD_LOBE, GLOSSY_REFLECTION_LOBE,
     GLOSSY_TRANSMISSION_LOBE, ROUGH_COND, ROUGH_DIEL, SceneConfig,
     SPECULAR_LOBE, SPECULAR_REFLECTION_LOBE, SPECULAR_TRANSMISSION_LOBE,
-    UNPORTED_MATS,
 )
 
 DIRAC_EPS = 1e-3  # DiracAcceptanceThreshold
@@ -62,14 +63,6 @@ class BSDFSample(NamedTuple):
     weight: torch.Tensor  # [N,3] f*cos/pdf
     lobe: torch.Tensor  # [N] int32 sampled lobe
     valid: torch.Tensor  # [N] bool -- False terminates the path
-
-
-def check_ported(cfg: SceneConfig) -> None:
-    extra = cfg.active_mats & UNPORTED_MATS
-    if extra:
-        raise NotImplementedError(
-            f"material bits {extra:#x}: a volume boundary needs the medium "
-            "code (ROADMAP M11)")
 
 
 def _check_reflection(wi, wo):
@@ -465,7 +458,6 @@ def _select(mask, a: BSDFSample, b: BSDFSample) -> BSDFSample:
 def sample(cfg: SceneConfig, mat: MatProps, wi, backside, ray_t,
            u0, u1, u2) -> BSDFSample:
     """Type-dispatched BSDF sampling with the eta^2 non-adjoint scaling."""
-    check_ported(cfg)
     n = wi.shape[:-1]
     dev = wi.device
     out = BSDFSample(
@@ -509,7 +501,6 @@ def _eta_for(mat: MatProps, wi, wo):
 def evaluate(cfg: SceneConfig, mat: MatProps, wi, wo,
              backside=None, ray_t=None) -> torch.Tensor:
     """f(wi,wo)*cos with the eta^2 scaling of dielectric transmission."""
-    check_ported(cfg)
     t = mat.mat_type
     f = torch.zeros_like(wi)
     for bit, fn in ((DIFF, lambda: lambert_eval(mat, wi, wo)),
@@ -527,7 +518,6 @@ def evaluate(cfg: SceneConfig, mat: MatProps, wi, wo,
 
 
 def pdf(cfg: SceneConfig, mat: MatProps, wi, wo) -> torch.Tensor:
-    check_ported(cfg)
     t = mat.mat_type
     p = torch.zeros(wi.shape[:-1], dtype=torch.float32, device=wi.device)
     for bit, fn in ((DIFF, lambda: lambert_pdf(wi, wo)),

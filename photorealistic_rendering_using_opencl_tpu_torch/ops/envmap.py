@@ -1,0 +1,156 @@
+"""Environment map: equirect lookup on a miss, and importance sampling.
+
+Port of ``photorealistic_rendering_using_opencl_tpu/ops/envmap.py``: the
+equirect lookup with bilinear filtering (u wraps, v clamps), the
+luminance-times-sin(theta) CDF tables built once at load, the continuous
+inverse-CDF sampler and its solid-angle pdf.  The per-row search is a
+bisection of O(log W) single-element gathers, never an [N, W] gather.
+The lookup's backward (the gradient of the map) is an indexed
+accumulation into the [H, W, 3] map: on the card its atomic adds come in
+an order that changes from run to run, so the map's gradient agrees with
+the CPU's to a tolerance, not bitwise.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from photorealistic_rendering_using_opencl_tpu_torch.ops.math import (
+    INV_PI, INV_TWO_PI, PI, TWO_PI,
+)
+
+LUMINANCE = (0.2126, 0.7152, 0.0722)
+
+
+def equirect_uv(direction: torch.Tensor):
+    """direction [..., 3] -> (u, v) in [0, 1]^2."""
+    u = torch.atan2(direction[..., 2], direction[..., 0]) * INV_TWO_PI + 0.5
+    v = torch.acos(torch.clamp(direction[..., 1], -1.0, 1.0)) * INV_PI
+    return u, v
+
+
+def sample_bilinear(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+    """Bilinear fetch from img [H,W,3]; u wraps, v clamps."""
+    h, w = img.shape[0], img.shape[1]
+    x = u * w - 0.5
+    y = v * h - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    x0i = torch.remainder(x0.to(torch.int32), w)
+    x1i = torch.remainder(x0i + 1, w)
+    y0i = torch.clamp(y0.to(torch.int32), 0, h - 1)
+    y1i = torch.clamp(y0i + 1, 0, h - 1)
+    flat = img.reshape(h * w, 3)
+
+    def tap(yi, xi):
+        return flat[(yi * w + xi).long()]
+
+    c00 = tap(y0i, x0i)
+    c10 = tap(y0i, x1i)
+    c01 = tap(y1i, x0i)
+    c11 = tap(y1i, x1i)
+    return ((c00 * (1 - fx) + c10 * fx) * (1 - fy)
+            + (c01 * (1 - fx) + c11 * fx) * fy)
+
+
+def radiance(env_map: torch.Tensor, direction: torch.Tensor) -> torch.Tensor:
+    u, v = equirect_uv(direction)
+    return sample_bilinear(env_map, u, v)
+
+
+# ---------------------------------------------------------------------------
+# Luminance-CDF importance sampling (tables at load, inverse CDF per ray)
+# ---------------------------------------------------------------------------
+
+def build_env_distribution(env_map: torch.Tensor) -> dict:
+    """Row and conditional CDFs of luminance x sin(theta): a dict with
+    cond_cdf [H,W], marg_cdf [H], weights [H,W] and total [] (the
+    SceneData leaves env_cond_cdf, env_marg_cdf, env_weights,
+    env_total)."""
+    env_map = env_map.detach()
+    h = env_map.shape[0]
+    dev = env_map.device
+    lum = torch.sum(env_map * torch.tensor(LUMINANCE, dtype=torch.float32,
+                                           device=dev), dim=-1)
+    theta = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) / h * PI
+    weights = lum * torch.sin(theta)[:, None] + 1e-12
+    row_sums = torch.sum(weights, dim=1)
+    cond_cdf = torch.cumsum(weights, dim=1) / row_sums[:, None]
+    marg_cdf = torch.cumsum(row_sums, dim=0) / torch.sum(row_sums)
+    return dict(cond_cdf=cond_cdf, marg_cdf=marg_cdf, weights=weights,
+                total=torch.sum(row_sums))
+
+
+def searchsorted_rows(cdf_table: torch.Tensor, row: torch.Tensor,
+                      u: torch.Tensor) -> torch.Tensor:
+    """Per-ray searchsorted within a selected row of an [H,W] CDF table:
+    the first index where cdf >= u, by bisection with one single-element
+    gather a step (the reference's ``jax_searchsorted_rows``)."""
+    w = cdf_table.shape[1]
+    steps = max(1, int(math.ceil(math.log2(max(w, 2)))))
+    flat = cdf_table.reshape(-1)
+    base = row.long() * w
+    lo = torch.zeros_like(row)
+    hi = torch.full_like(row, w - 1)
+    for _ in range(steps):
+        mid = torch.div(lo + hi, 2, rounding_mode="floor")
+        below = flat[base + mid.long()] < u
+        lo, hi = torch.where(below, mid + 1, lo), torch.where(below, hi, mid)
+    return lo.to(torch.int32)
+
+
+def sample_env(dist: dict, u1: torch.Tensor, u2: torch.Tensor):
+    """Continuous inverse-CDF sample -> (direction [N,3], solid-angle pdf
+    [N]), uniform within the selected texel so that radiance / pdf is
+    unbiased."""
+    row, col, v, u = sample_env_cell(dist, u1, u2)
+    theta = v * PI
+    phi = (u - 0.5) * TWO_PI
+    sin_t = torch.sin(theta)
+    direction = torch.stack([torch.cos(phi) * sin_t, torch.cos(theta),
+                             torch.sin(phi) * sin_t], dim=-1)
+    return direction, env_pdf_from_cell(dist, row, col, sin_t)
+
+
+def sample_env_cell(dist: dict, u1: torch.Tensor, u2: torch.Tensor):
+    """The inverse CDF of ``sample_env`` -> (row [N], col [N] int64, v [N],
+    u [N]): the texel and the sample's equirect coordinates in it."""
+    h, w = dist["cond_cdf"].shape
+    marg = dist["marg_cdf"]
+    row = torch.clamp(torch.searchsorted(marg, u1), 0, h - 1)
+    c_hi = marg[row]
+    c_lo = torch.where(row > 0, marg[torch.clamp(row - 1, min=0)], 0.0)
+    frac_v = torch.clamp((u1 - c_lo) / torch.clamp(c_hi - c_lo, min=1e-12),
+                         0.0, 1.0)
+
+    cond = dist["cond_cdf"]
+    col = torch.clamp(searchsorted_rows(cond, row, u2), 0, w - 1).long()
+    d_hi = cond[row, col]
+    d_lo = torch.where(col > 0, cond[row, torch.clamp(col - 1, min=0)], 0.0)
+    frac_u = torch.clamp((u2 - d_lo) / torch.clamp(d_hi - d_lo, min=1e-12),
+                         0.0, 1.0)
+
+    v = (row.to(torch.float32) + frac_v) / h
+    u = (col.to(torch.float32) + frac_u) / w
+    return row, col, v, u
+
+
+def env_pdf_from_cell(dist, row, col, sin_theta):
+    h, w = dist["cond_cdf"].shape
+    cell = dist["weights"][row.long(), col.long()] / dist["total"]
+    # p(u,v) = cell * H*W; dw = (2pi/W)(pi/H) sin(theta)
+    return cell * h * w / torch.clamp(TWO_PI * PI * sin_theta, min=1e-12)
+
+
+def env_pdf(dist: dict, direction: torch.Tensor):
+    """Solid-angle pdf of sampling a given direction."""
+    h, w = dist["cond_cdf"].shape
+    u, v = equirect_uv(direction)
+    col = torch.clamp((u * w).to(torch.int32), 0, w - 1)
+    row = torch.clamp((v * h).to(torch.int32), 0, h - 1)
+    sin_t = torch.sqrt(torch.clamp(
+        1.0 - direction[..., 1] * direction[..., 1], min=1e-12))
+    return env_pdf_from_cell(dist, row, col, sin_t)

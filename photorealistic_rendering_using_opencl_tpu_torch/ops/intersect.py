@@ -1,24 +1,30 @@
-"""Scene intersection for the render path: analytic spheres and quads, and
-the triangle mesh through the brute backend (ops/mesh_brute.py).
+"""Scene intersection for the render path: analytic spheres, SDFs, boxes
+and quads, and the triangle mesh through the brute backend
+(ops/mesh_brute.py).
 
-Port of the slice's subset of
-``photorealistic_rendering_using_opencl_tpu/ops/intersect.py``.  The whole
-ray batch is intersected against each primitive class with broadcasting
-([rays x objects]); the mesh runs once per call on the merged closest-hit +
-shadow batch.  Selection is detached; the winner is reattached with
-zero-in-primal corrections, ``t_det - (f - f.detach()) / dfdt``, so that
-gradients only need autograd switched on.  The merged dispatch comes in two
-halves so the differentiable render loops can keep the expensive one out
-of their recomputed regions: ``intersect_and_shadow_detached`` (analytic
-sweep, shadow tests, the mesh kernel, winner validation; no gradient) and
-``finish_hit`` (the reattach functions; every gradient of the geometry
-enters here).  The reference's one-piece entry points are those halves in
-a row: ``intersect_scene`` (a closest-hit batch alone),
+Port of ``photorealistic_rendering_using_opencl_tpu/ops/intersect.py``
+without the BVH walk (ROADMAP M12).  The whole ray batch is intersected
+against each primitive class with broadcasting ([rays x objects]); SDFs
+are sphere-traced by a masked loop over the batch; the mesh runs once per
+call on the merged closest-hit + shadow batch.  Selection is detached;
+the winner is reattached with zero-in-primal corrections,
+``t_det - (f - f.detach()) / dfdt``, so that gradients only need autograd
+switched on.  The merged dispatch comes in two halves so the
+differentiable render loops can keep the expensive one out of their
+recomputed regions: ``intersect_and_shadow_detached`` (analytic sweep and
+SDF march, shadow tests, the mesh kernel, winner validation; no gradient)
+and ``finish_hit`` (the reattach functions; every gradient of the
+geometry enters here).  The reference's one-piece entry points are those
+halves in a row: ``intersect_scene`` (a closest-hit batch alone),
 ``intersect_and_shadow`` (closest hits and shadow batches), and
 ``shadow_visible`` (one shadow batch, the mesh last).
 
-SDFs and boxes are ROADMAP M10, the BVH walk M12: a scene with them never
-reaches this module (scene/loader.py raises).
+The reference's ``sdf_march`` is a ``while_loop`` that stops when every
+lane is done; a done lane's t is frozen, so running all of the budget's
+steps gives bitwise the same t.  Here the march runs the whole budget
+(no host sync: the differentiable loops' dispatches) or, with
+``early_exit``, asks the device whether every lane is done once every
+``MARCH_EXIT_EVERY`` steps (the forward loops, which sync anyway).
 
 Object order is [spheres | sdfs | boxes | quads]; the OBJ triangle mesh
 is a virtual object with id == cfg.n_objects.
@@ -34,8 +40,13 @@ from photorealistic_rendering_using_opencl_tpu_torch.ops.math import (
     EPS, RAY_INF, copysign, cross, fetch_float_rows, normalize,
 )
 from photorealistic_rendering_using_opencl_tpu_torch.scene.types import (
-    DIEL, QUAD, ROUGH_DIEL, SceneConfig, SceneData, SPHERE,
+    BOX, DIEL, QUAD, ROUGH_DIEL, SceneConfig, SceneData, SDF, SDF_BOX,
+    SDF_CYLINDER, SDF_PLANE, SDF_ROUND_BOX, SDF_SPHERE, SDF_TORUS, SPHERE,
 )
+
+# the early-exit march asks the device "every lane done?" once this many
+# steps (the reference's while_loop asks every step)
+MARCH_EXIT_EVERY = 16
 
 
 class Hit(NamedTuple):
@@ -54,8 +65,6 @@ class Hit(NamedTuple):
 
 
 def _check_ported(cfg: SceneConfig) -> None:
-    if cfg.n_sdfs or cfg.n_boxes:
-        raise NotImplementedError("SDFs and boxes are ROADMAP M10")
     if cfg.has_mesh and cfg.mesh_accel != "brute":
         raise NotImplementedError("the BVH walk (mesh_accel='bvh') is "
                                   "ROADMAP M12")
@@ -81,6 +90,35 @@ def sphere_hits(origin, direction, centers, radii):
     return torch.where(det_sq >= 0.0, t, torch.inf)
 
 
+def box_hits(origin, direction, centers, half_extents):
+    """Slab test vs [B] boxes -> (t[N,B], normal[N,B,3], backside[N,B]).
+
+    The two corners are ``pos + half_extents`` and ``pos - half_extents``;
+    the normal is the axis that achieves the entry (or, from inside, the
+    exit) time, found by exact comparison.
+    """
+    inv_d = 1.0 / torch.where(torch.abs(direction) < 1e-12,
+                              copysign(1e-12, direction), direction)
+    o = origin[:, None, :]
+    idv = inv_d[:, None, :]
+    tmin = (centers[None] + half_extents[None] - o) * idv
+    tmax = (centers[None] - half_extents[None] - o) * idv
+    real_min = torch.minimum(tmin, tmax)  # [N,B,3]
+    real_max = torch.maximum(tmin, tmax)
+    minmax = torch.amin(real_max, dim=-1)
+    maxmin = torch.amax(real_min, dim=-1)
+    outside = maxmin > 0.0
+    hit = (minmax > maxmin) & ((outside & (maxmin > 0.0)) | (minmax > 0.0))
+    t = torch.where(outside, maxmin, minmax)
+    plane = torch.where(outside[..., None], real_min, real_max)
+    sel = torch.where(outside[..., None], plane == maxmin[..., None],
+                      plane == minmax[..., None])
+    normal = -torch.sign(direction)[:, None, :] * sel.to(torch.float32)
+    backside = ~outside
+    t = torch.where(hit & (t > EPS), t, torch.inf)
+    return t, normal, backside
+
+
 def quad_hits(origin, direction, base, edge0, edge1, normal):
     """One-sided parallelogram intersect -> t[N,Q]; ``base`` is the rect
     center, the anchor corner is base - (edge0+edge1)/2."""
@@ -97,6 +135,136 @@ def quad_hits(origin, direction, base, edge0, edge1, normal):
     ok = ((ndotw >= 1e-5) & (rt > EPS)
           & (l0 >= 0.0) & (l0 <= 1.0) & (l1 >= 0.0) & (l1 <= 1.0))
     return torch.where(ok, rt, torch.inf)
+
+
+# ===========================================================================
+# SDF raymarching
+# ===========================================================================
+
+def _sum3(x):
+    """x0 + x1 + x2 over the last axis, as elementwise adds in that order:
+    bitwise the same on the CPU and the card (a reduction kernel's order is
+    its own).  The central differences of ``_sdf_grad`` magnify a last-bit
+    difference of a distance to ~1e-3 of the normal."""
+    return (x[..., 0] + x[..., 1]) + x[..., 2]
+
+
+def _sqrt(x):
+    """A correctly rounded float32 sqrt (through float64): the card's
+    sqrtf is, PyTorch's vectorised CPU sqrt is not (one input in ~140 is
+    a last bit off), and ``_sdf_grad`` would magnify that bit."""
+    return torch.sqrt(x.double()).float()
+
+
+def _norm(x):
+    """sqrt(x0^2 + x1^2 + x2^2): the reference's 2-norm, with a zero
+    derivative at the zero vector.  The reference's sqrt has an infinite
+    one there, so a lane whose evaluation of the box or round-box formula
+    has all of |p| - b <= 0 (every box-class hit on a face evaluates it)
+    turns every gradient of the SDF tables into NaN (ROADMAP F12).  The
+    value is the reference's bit for bit."""
+    s = _sum3(x * x)
+    zero = s <= 0.0
+    return torch.where(zero, 0.0, _sqrt(torch.where(zero, 1.0, s)))
+
+
+def sd_primitive(geom_type, center_rel, params):
+    """Signed distance of one SDF object; broadcast over [..., objects].
+
+    geom_type carries the SDF subtype bits, params [..., 4], center_rel
+    [..., 3] = p - position.  Every subtype is evaluated and the type bits
+    select one, as in the reference (cylinder and torus are JSON types 8
+    and 9; a torus's radii are params 0 and 1).
+    """
+    p = center_rel
+    r = params[..., 0]
+    b = params[..., :3]
+    d_sphere = _norm(p) - r
+    q = torch.abs(p) - b
+    d_box = (torch.clamp(torch.amax(q, dim=-1), max=0.0)
+             + _norm(torch.clamp(q, min=0.0)))
+    d_round = _norm(torch.clamp(q, min=0.0)) - params[..., 3]
+    d_plane = _sum3(p * params[..., :3]) + params[..., 3]
+    len_xz = _sqrt(torch.clamp(p[..., 0] * p[..., 0]
+                               + p[..., 2] * p[..., 2], min=1e-30))
+    d_cyl = torch.maximum(len_xz - params[..., 0],
+                          torch.abs(p[..., 1]) - params[..., 1])
+    ring = len_xz - params[..., 0]
+    d_torus = _sqrt(torch.clamp(ring * ring + p[..., 1] * p[..., 1],
+                                min=1e-30)) - params[..., 1]
+    d = torch.where((geom_type & SDF_TORUS) != 0, d_torus, torch.inf)
+    for bit, dist in ((SDF_CYLINDER, d_cyl), (SDF_PLANE, d_plane),
+                      (SDF_ROUND_BOX, d_round), (SDF_BOX, d_box),
+                      (SDF_SPHERE, d_sphere)):
+        d = torch.where((geom_type & bit) != 0, dist, d)
+    return d
+
+
+def sdf_map(pos, centers, geom_type, params):
+    """Min over SDF objects; pos [N,3] -> (dist [N], argmin [N] int32)."""
+    rel = pos[:, None, :] - centers[None]
+    d = sd_primitive(geom_type[None], rel, params[None])  # [N,S]
+    dist, arg = torch.min(d, dim=-1)
+    return dist, arg.to(torch.int32)
+
+
+def sdf_march(origin, direction, t_limit, centers, geom_type, params,
+              steps: int, active=None, early_exit: bool = False):
+    """Sphere tracing -> (t [N], obj [N], hit [N]), detached.
+
+    Masked-out lanes (active=False) are born done.  A done lane's t stays
+    frozen, so every one of ``steps`` iterations may run: bitwise the
+    reference's early-stopping loop.  With ``early_exit`` the loop also
+    stops once every lane is done, asked every MARCH_EXIT_EVERY steps.
+    ``sdf_march.calls`` and ``sdf_march.steps`` count the marches and
+    their iterations (each iteration one sdf_map over the batch).
+    """
+    with torch.no_grad():
+        origin, direction = origin.detach(), direction.detach()
+        centers, params = centers.detach(), params.detach()
+        t_limit = torch.as_tensor(t_limit).detach()
+        n = origin.shape[:-1]
+        t = torch.full(n, EPS * 10.0, dtype=torch.float32,
+                       device=origin.device)
+        done = torch.zeros(n, dtype=torch.bool, device=origin.device)
+        if active is not None:
+            done = done | ~active.detach()
+        sdf_march.calls += 1
+        for i in range(steps):
+            if early_exit and i % MARCH_EXIT_EVERY == 0 and bool(done.all()):
+                break
+            pos = origin + direction * t[..., None]
+            h, _ = sdf_map(pos, centers, geom_type, params)
+            h = torch.abs(h)
+            done = done | (h < EPS) | (t > t_limit)
+            t = torch.where(done, t, t + h)
+            sdf_march.steps += 1
+        hit = t <= t_limit
+        pos = origin + direction * t[..., None]
+        _, obj = sdf_map(pos, centers, geom_type, params)
+    return t, obj, hit
+
+
+sdf_march.calls = 0
+sdf_march.steps = 0
+
+
+def _sdf_grad(gt, p, c, prm):
+    """Central differences of the selected SDF at p (differentiable)."""
+    e = EPS * 2.0
+    grads = []
+    for axis in range(3):
+        off = torch.zeros(3, dtype=torch.float32, device=p.device)
+        off[axis] = e
+        grads.append(sd_primitive(gt, p + off - c, prm)
+                     - sd_primitive(gt, p - off - c, prm))
+    return normalize(torch.stack(grads, dim=-1))
+
+
+def sdf_normal(pos, centers, geom_type, params, obj_idx):
+    """Central differences on the selected object."""
+    i = obj_idx.long()
+    return _sdf_grad(geom_type[i], pos, centers[i], params[i])
 
 
 # ===========================================================================
@@ -142,13 +310,19 @@ def tri_reattach(tri_verts, tri, origin, direction):
 
 def _surface_f(cfg, gt, p, c, prm, qb, qe0, qe1, qn):
     """Signed surface function F(p) of the winning analytic object: zero on
-    the surface (spheres and quads; SDFs and boxes are ROADMAP M10)."""
+    the surface, smooth in p and in the object's table rows."""
     rel = p - c
     out = torch.zeros(p.shape[:-1], dtype=torch.float32, device=p.device)
+    if cfg.n_sdfs:
+        out = torch.where((gt & SDF) != 0, sd_primitive(gt, rel, prm), out)
     if cfg.n_quads:
         anchor = qb - (qe0 + qe1) * 0.5
         out = torch.where((gt & QUAD) != 0,
                           torch.sum(qn * (p - anchor), dim=-1), out)
+    if cfg.n_boxes:
+        out = torch.where((gt & BOX) != 0,
+                          torch.amax(torch.abs(rel) - prm[:, 0:3], dim=-1),
+                          out)
     if cfg.n_spheres:
         out = torch.where((gt & SPHERE) != 0,
                           torch.sum(rel * rel, dim=-1) - prm[:, 0] * prm[:, 0],
@@ -156,11 +330,22 @@ def _surface_f(cfg, gt, p, c, prm, qb, qe0, qe1, qn):
     return out
 
 
-def _surface_dfdt(cfg, gt, p, c, qn, d):
-    """dF/dt along the ray for ``_surface_f`` (detached)."""
+def _surface_dfdt(cfg, gt, p, c, prm, qn, d):
+    """dF/dt along the ray for ``_surface_f`` (detached): the directional
+    derivative of F at p along d.  SDFs take it by forward-mode AD (the
+    reference's ``jax.jvp``), the other classes in closed form."""
     out = torch.zeros(p.shape[:-1], dtype=torch.float32, device=p.device)
+    if cfg.n_sdfs:
+        _, ddir = torch.func.jvp(lambda pp: sd_primitive(gt, pp - c, prm),
+                                 (p,), (d,))
+        out = torch.where((gt & SDF) != 0, ddir, out)
     if cfg.n_quads:
         out = torch.where((gt & QUAD) != 0, torch.sum(qn * d, dim=-1), out)
+    if cfg.n_boxes:
+        _, ddir = torch.func.jvp(
+            lambda pp: torch.amax(torch.abs(pp - c) - prm[:, 0:3], dim=-1),
+            (p,), (d,))
+        out = torch.where((gt & BOX) != 0, ddir, out)
     if cfg.n_spheres:
         out = torch.where((gt & SPHERE) != 0,
                           torch.sum((p - c) * d, dim=-1) * 2.0, out)
@@ -190,13 +375,18 @@ def analytic_reattach(cfg: SceneConfig, scene: SceneData, origin, direction,
     p = origin + direction * t_sg[..., None]
     f = _surface_f(cfg, gt, p, c, prm, qb, qe0, qe1, qn)
     p_sg = (origin.detach() + direction.detach() * t_sg[..., None])
-    dfdt = _surface_dfdt(cfg, gt, p_sg, c.detach(), qn.detach(),
-                         direction.detach())
+    dfdt = _surface_dfdt(cfg, gt, p_sg, c.detach(), prm.detach(),
+                         qn.detach(), direction.detach())
     dfdt = torch.where(torch.abs(dfdt) < 1e-6, copysign(1e-6, dfdt), dfdt)
 
     t_re = t_det - torch.where(analytic, f - f.detach(), 0.0) / dfdt
 
     n_dif = normal_det.detach()
+    if cfg.n_sdfs:
+        # the reference's form, at the hit point with a detached t (the
+        # sphere's below moves with t: ROADMAP F2)
+        n_dif = torch.where((gt & SDF)[..., None] != 0,
+                            _sdf_grad(gt, p, c, prm), n_dif)
     if cfg.n_quads:
         n_dif = torch.where((gt & QUAD)[..., None] != 0, qn, n_dif)
     if cfg.n_spheres:
@@ -309,9 +499,10 @@ def _validate_winner(tri_verts, tri, origin, direction, t_init):
 
 
 def _closest_analytic(cfg: SceneConfig, scene: SceneData, origin, direction,
-                      active=None):
+                      active=None, early_exit: bool = True):
     """Closest hit over the analytic classes, detached -> (t, mesh_id,
-    normal).  Every class keeps only a strictly closer hit."""
+    normal).  Every class keeps only a strictly closer hit; the SDF march
+    starts with the spheres' t as its limit."""
     _check_ported(cfg)
     origin = origin.detach()
     direction = direction.detach()
@@ -322,12 +513,13 @@ def _closest_analytic(cfg: SceneConfig, scene: SceneData, origin, direction,
     normal = torch.zeros((n, 3), dtype=torch.float32, device=dev)
 
     s0, s1 = 0, cfg.n_spheres
-    q0 = s1 + cfg.n_sdfs + cfg.n_boxes
-    q1 = q0 + cfg.n_quads
+    d0, d1 = s1, s1 + cfg.n_sdfs
+    b0, b1 = d1, d1 + cfg.n_boxes
+    q0, q1 = b1, b1 + cfg.n_quads
     position = scene.position.detach()
+    params = scene.params.detach()
     if cfg.n_spheres:
-        ts = sphere_hits(origin, direction, position[s0:s1],
-                         scene.params.detach()[s0:s1, 0])
+        ts = sphere_hits(origin, direction, position[s0:s1], params[s0:s1, 0])
         best, arg = torch.min(ts, dim=-1)
         arg = arg.to(torch.int32)
         better = best < t
@@ -336,6 +528,28 @@ def _closest_analytic(cfg: SceneConfig, scene: SceneData, origin, direction,
         pos = origin + direction * t[..., None]
         ns = normalize(pos - position[s0 + torch.clamp(arg, min=0).long()])
         normal = torch.where(better[..., None], ns, normal)
+
+    if cfg.n_sdfs:
+        gt = scene.geom_type[d0:d1]
+        tsdf, obj, hit_s = sdf_march(origin, direction, t, position[d0:d1],
+                                     gt, params[d0:d1], cfg.marching_steps,
+                                     active=active, early_exit=early_exit)
+        better = hit_s & (tsdf < t)
+        t = torch.where(better, tsdf, t)
+        mesh_id = torch.where(better, d0 + obj, mesh_id)
+        pos = origin + direction * t[..., None]
+        nsdf = sdf_normal(pos, position[d0:d1], gt, params[d0:d1], obj)
+        normal = torch.where(better[..., None], nsdf, normal)
+
+    if cfg.n_boxes:
+        tb, nb, _ = box_hits(origin, direction, position[b0:b1],
+                             params[b0:b1, :3])
+        best, arg = torch.min(tb, dim=-1)
+        better = best < t
+        t = torch.where(better, best, t)
+        mesh_id = torch.where(better, b0 + arg.to(torch.int32), mesh_id)
+        nsel = nb[torch.arange(n, device=dev), arg]
+        normal = torch.where(better[..., None], nsel, normal)
 
     if cfg.n_quads:
         qn_all = scene.quad_normal.detach()
@@ -392,19 +606,32 @@ def _finish_hit(cfg: SceneConfig, scene: SceneData, origin, direction,
 
 
 def _shadow_analytic(cfg: SceneConfig, scene: SceneData, origin, direction,
-                     max_dist, active=None):
-    """Analytic occlusion tests -> (blocked [N] bool, limit [N])."""
+                     max_dist, active=None, early_exit: bool = True):
+    """Analytic occlusion tests -> (blocked [N] bool, limit [N]); SDFs
+    march with the shadow budget."""
     _check_ported(cfg)
     n = origin.shape[0]
     limit = max_dist * (1.0 - 1e-3)
     blocked = torch.zeros((n,), dtype=torch.bool, device=origin.device)
     s0, s1 = 0, cfg.n_spheres
-    q0 = s1 + cfg.n_sdfs + cfg.n_boxes
-    q1 = q0 + cfg.n_quads
+    d0, d1 = s1, s1 + cfg.n_sdfs
+    b0, b1 = d1, d1 + cfg.n_boxes
+    q0, q1 = b1, b1 + cfg.n_quads
     if cfg.n_spheres:
         ts = torch.amin(sphere_hits(origin, direction, scene.position[s0:s1],
                                     scene.params[s0:s1, 0]), dim=-1)
         blocked = blocked | (ts < limit)
+    if cfg.n_sdfs:
+        _, _, hit_s = sdf_march(origin, direction, limit,
+                                scene.position[d0:d1], scene.geom_type[d0:d1],
+                                scene.params[d0:d1],
+                                cfg.shadow_marching_steps, active=active,
+                                early_exit=early_exit)
+        blocked = blocked | hit_s
+    if cfg.n_boxes:
+        tb, _, _ = box_hits(origin, direction, scene.position[b0:b1],
+                            scene.params[b0:b1, :3])
+        blocked = blocked | (torch.amin(tb, dim=-1) < limit)
     if cfg.n_quads:
         tq = torch.amin(quad_hits(origin, direction, scene.quad_base[q0:q1],
                                   scene.quad_edge0[q0:q1],
@@ -428,7 +655,8 @@ class DetachedHits(NamedTuple):
 @torch.no_grad()
 def intersect_and_shadow_detached(cfg: SceneConfig, scene: SceneData,
                                   origin, direction, active, shadow_batches,
-                                  exclude_tri=None) -> DetachedHits:
+                                  exclude_tri=None, early_exit: bool = True
+                                  ) -> DetachedHits:
     """Closest hit for one ray batch + occlusion for K shadow batches, with
     the mesh backend invoked ONCE on the concatenated (K+1)N-ray batch
     (per-lane any-hit flag).  Runs without autograd.
@@ -436,16 +664,19 @@ def intersect_and_shadow_detached(cfg: SceneConfig, scene: SceneData,
     ``shadow_batches``: list of (origin, direction, max_dist, active).
     ``exclude_tri`` may be one [N] row (the same exclusion for every
     segment) or a list of K+1 rows ([closest] + one per shadow batch).
+    ``early_exit`` lets the SDF marches stop when every lane is done (a
+    host sync every MARCH_EXIT_EVERY steps; the result is the same).
     """
     n = origin.shape[0]
     dev = origin.device
     act_c = (active if active is not None
              else torch.ones((n,), dtype=torch.bool, device=dev))
     t, mesh_id, normal = _closest_analytic(cfg, scene, origin, direction,
-                                           active=act_c)
+                                           active=act_c, early_exit=early_exit)
     blocked, limits, acts = [], [], []
     for (o_s, d_s, dist_s, a_s) in shadow_batches:
-        b, lim = _shadow_analytic(cfg, scene, o_s, d_s, dist_s, active=a_s)
+        b, lim = _shadow_analytic(cfg, scene, o_s, d_s, dist_s, active=a_s,
+                                  early_exit=early_exit)
         a_s = (a_s if a_s is not None
                else torch.ones((o_s.shape[0],), dtype=torch.bool, device=dev))
         blocked.append(b)

@@ -15,9 +15,11 @@ EPS = 1e-5
 # the reference clamps rays at INF = 2e1 (a 20-unit world)
 RAY_INF = 2e1
 
+PI = math.pi
 TWO_PI = 2.0 * math.pi
 INV_PI = 1.0 / math.pi
 INV_TWO_PI = 1.0 / (2.0 * math.pi)
+INV_FOUR_PI = 1.0 / (4.0 * math.pi)
 
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -49,6 +51,11 @@ def safe_sqrt(x: torch.Tensor) -> torch.Tensor:
 def fmax3(v: torch.Tensor) -> torch.Tensor:
     """Max component over the last axis."""
     return torch.amax(v, dim=-1)
+
+
+def avg3(v: torch.Tensor) -> torch.Tensor:
+    """Mean over the last axis."""
+    return torch.mean(v, dim=-1)
 
 
 def sgn_e(x: torch.Tensor) -> torch.Tensor:

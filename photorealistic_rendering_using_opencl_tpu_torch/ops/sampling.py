@@ -7,13 +7,21 @@ from __future__ import annotations
 import torch
 
 from photorealistic_rendering_using_opencl_tpu_torch.ops.math import (
-    INV_PI, INV_TWO_PI, TWO_PI, safe_sqrt,
+    INV_FOUR_PI, INV_PI, INV_TWO_PI, TWO_PI, safe_sqrt,
 )
 
 
 def _from_polar(phi, z):
     r = safe_sqrt(1.0 - z * z)
     return torch.stack([torch.cos(phi) * r, torch.sin(phi) * r, z], dim=-1)
+
+
+def uniform_sphere(u1, u2):
+    return _from_polar(u1 * TWO_PI, u2 * 2.0 - 1.0)
+
+
+def uniform_sphere_pdf():
+    return INV_FOUR_PI
 
 
 def uniform_spherical_cap(u1, u2, cos_theta_max):

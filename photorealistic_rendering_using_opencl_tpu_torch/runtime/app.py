@@ -12,10 +12,11 @@ On the card every progressive step runs the ``while`` bounce loop, so K1
 image on the card with K2 before only the 8-bit result crosses to the
 host; the interactive preview does the same.
 
-Flags whose feature is a later ROADMAP item raise ``NotImplementedError``
-before any render: ``-hdr`` (environment maps, M11) and ``--sharded`` with
-more than one card (M15; with one card the render is unsharded, as in the
-reference).  Interactive mode is a terminal shell with the reference's key
+``-hdr`` reads an equirect Radiance map (``utils.image.read_hdr``) that
+lights the scene where rays miss, importance-sampled at every vertex.
+``--sharded`` with more than one card is a later ROADMAP item (M15) and
+raises ``NotImplementedError`` before any render; with one card the render
+is unsharded, as in the reference.  Interactive mode is a terminal shell with the reference's key
 bindings and mouse-equivalent commands; a camera edit resets the
 accumulation.
 """
@@ -44,7 +45,7 @@ from photorealistic_rendering_using_opencl_tpu_torch.utils.device import (
     DEFAULT_DEVICE, resolve_device,
 )
 from photorealistic_rendering_using_opencl_tpu_torch.utils.image import (
-    write_hdr, write_png,
+    read_hdr, write_hdr, write_png,
 )
 from photorealistic_rendering_using_opencl_tpu_torch.utils.profiling import torch_trace
 
@@ -60,7 +61,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-width", "--width", type=int, default=1024)
     p.add_argument("-height", "--height", type=int, default=1024)
     p.add_argument("-hdr", "--hdr", default=None,
-                   help="equirect HDR environment map (ROADMAP M11: raises)")
+                   help="equirect HDR environment map (Radiance .hdr)")
     p.add_argument("-alpha", "--alpha", action="store_true",
                    help="alpha testing: transparent background")
     p.add_argument("-encoder", "--encoder", type=int, default=0,
@@ -105,8 +106,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _check_ported(args, device: torch.device) -> None:
     """Raise for flags whose feature is a later ROADMAP item."""
-    if args.hdr:
-        raise NotImplementedError("-hdr: environment maps are ROADMAP M11")
     if (args.sharded and device.type == "cuda"
             and torch.cuda.device_count() > 1):
         raise NotImplementedError(
@@ -115,7 +114,8 @@ def _check_ported(args, device: torch.device) -> None:
 
 
 def _load(args):
-    cfg, scene = load_scene(args.scene, alpha_testing=args.alpha,
+    env = read_hdr(args.hdr) if args.hdr else None
+    cfg, scene = load_scene(args.scene, env_map=env, alpha_testing=args.alpha,
                             phase_function=args.phase,
                             device=resolve_device(args.device))
     if args.pick_random_light:

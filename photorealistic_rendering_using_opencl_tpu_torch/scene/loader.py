@@ -1,15 +1,17 @@
 """JSON scene loader -> (SceneConfig, SceneData) on the card by default.
 
 Port of ``photorealistic_rendering_using_opencl_tpu/scene/loader.py`` with
-the brute mesh backend only.  The leaves are built in numpy exactly as the
-reference builds them and copied to ``device`` at the end: the CUDA card
-unless the caller passes ``device="cpu"`` (without a card, the default
-raises; it never falls back to the CPU).
+the brute mesh backend only: spheres, SDFs, boxes and quads in canonical
+order, the OBJ mesh, the global medium (sigmas premultiplied by density),
+the phase function and an environment map with its sampling tables.  The
+leaves are built in numpy exactly as the reference builds them and copied
+to ``device`` at the end: the CUDA card unless the caller passes
+``device="cpu"`` (without a card, the default raises; it never falls back
+to the CPU).  The environment map's CDF tables are built on ``device``
+from the map (``ops/envmap.build_env_distribution``).
 
-Not ported yet, and refused with ``NotImplementedError``: SDFs and boxes
-(ROADMAP M10), a global medium, environment maps and volume-boundary
-materials (M11), and meshes over 262,144 triangles, which need the BVH
-walk (M12).
+Meshes over 262,144 triangles need the BVH walk (ROADMAP M12) and are
+refused with ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -19,13 +21,14 @@ import warnings
 
 import numpy as np
 
-from photorealistic_rendering_using_opencl_tpu_torch.ops import mesh_brute
-from photorealistic_rendering_using_opencl_tpu_torch.ops.bsdf import check_ported
+import torch
+
+from photorealistic_rendering_using_opencl_tpu_torch.ops import envmap, mesh_brute
 from photorealistic_rendering_using_opencl_tpu_torch.ops.math import RAY_INF
 from photorealistic_rendering_using_opencl_tpu_torch.scene import bvh_build, obj as obj_io
 from photorealistic_rendering_using_opencl_tpu_torch.scene.types import (
-    ABS_REFR, ABS_REFR2, AU_ETA, AU_K, BECKMANN, BK7_ETA, DIEL, DIFF, LIGHT,
-    QUAD, ROUGH_DIEL, SceneConfig, SceneData, SPHERE,
+    ABS_REFR, ABS_REFR2, AU_ETA, AU_K, BECKMANN, BK7_ETA, BOX, DIEL, DIFF,
+    LIGHT, QUAD, ROUGH_DIEL, SceneConfig, SceneData, SDF, SPHERE,
     default_lobes_for_type, empty_scene_data, _np_leaves_to_torch,
 )
 from photorealistic_rendering_using_opencl_tpu_torch.utils.device import (
@@ -123,12 +126,7 @@ def build_scene(doc: dict, models_dir: str | None = None,
     sdfs = scene_doc.get("sdfs", [])
     boxes = scene_doc.get("boxes", [])
     quads = scene_doc.get("quads", [])
-    if sdfs or boxes:
-        raise NotImplementedError("SDFs and boxes are ROADMAP M10")
-    if doc.get("global_medium") is not None or env_map is not None:
-        raise NotImplementedError("media and environment maps are "
-                                  "ROADMAP M11")
-    n_obj = len(spheres) + len(quads)
+    n_obj = len(spheres) + len(sdfs) + len(boxes) + len(quads)
     nk = max(n_obj, 1)
 
     # ---------------- OBJ mesh -> brute tables ----------------
@@ -190,6 +188,29 @@ def build_scene(doc: dict, models_dir: str | None = None,
         extent.append(float(np.linalg.norm(position[idx])
                             + abs(params[idx, 0])))
         idx += 1
+    for s in sdfs:
+        geom_type[idx] = SDF | (1 << int(s.get("type", 4)))
+        position[idx] = s.get("pos", [0, 0, 0])[:3]
+        pr = s.get("params", [])
+        params[idx, :len(pr[:4])] = pr[:4]
+        m = _Mat()
+        if "material" in s:
+            active_mats |= _parse_material(s["material"], m)
+        _store_mat(idx, m, color, eta, kk, rough, mat_type, dist)
+        extent.append(float(np.linalg.norm(position[idx])
+                            + np.abs(params[idx]).max()))
+        idx += 1
+    for b in boxes:
+        geom_type[idx] = BOX
+        position[idx] = b.get("pos", [0, 0, 0])[:3]
+        params[idx, :3] = b.get("scale", [1, 1, 1])[:3]
+        m = _Mat()
+        if "material" in b:
+            active_mats |= _parse_material(b["material"], m)
+        _store_mat(idx, m, color, eta, kk, rough, mat_type, dist)
+        extent.append(float(np.linalg.norm(position[idx])
+                            + np.linalg.norm(params[idx, :3])))
+        idx += 1
     for q in quads:
         geom_type[idx] = QUAD
         v = [float(x) for x in q["vertices"]]
@@ -217,8 +238,25 @@ def build_scene(doc: dict, models_dir: str | None = None,
 
     light_indices = [i for i in range(n_obj) if mat_type[i] & LIGHT]
 
+    # ---------------- global medium ----------------
+    gm = doc.get("global_medium")
+    has_medium = gm is not None
+    sigma_a = np.zeros(3, np.float32)
+    sigma_s = np.zeros(3, np.float32)
+    medium_type = "homogeneous"
+    if has_medium:
+        density = float(gm.get("density", 0.1))
+        sigma_a[:] = density * float(gm.get("sigmaA", 0.2))
+        sigma_s[:] = density * float(gm.get("sigmaS", 1.0))
+        medium_type = str(gm.get("type", "homogeneous"))
+        if medium_type not in ("homogeneous", "exponential"):
+            raise ValueError(f"unknown global_medium type {medium_type!r}")
+    sigma_t = sigma_a + sigma_s
+    absorption_only = has_medium and float(sigma_s.max()) == 0.0
+
     cfg = SceneConfig(
-        n_spheres=len(spheres), n_sdfs=0, n_boxes=0, n_quads=len(quads),
+        n_spheres=len(spheres), n_sdfs=len(sdfs), n_boxes=len(boxes),
+        n_quads=len(quads),
         n_triangles=n_tris, n_bvh_nodes=n_nodes,
         n_lights=len(light_indices),
         max_bounces=int(settings.get("MAX_BOUNCES", 12)),
@@ -230,9 +268,13 @@ def build_scene(doc: dict, models_dir: str | None = None,
         shadow_marching_steps=int(settings.get("SHADOW_MARCHING_STEPS", 64)),
         enable_light_sampling=bool(settings.get("ENABLE_LIGHT_SAMPLING", True)),
         pick_random_light=bool(settings.get("PICK_RANDOM_LIGHT", False)),
+        has_global_medium=has_medium,
+        medium_absorption_only=absorption_only,
+        medium_type=medium_type,
         phase_function=phase_function,
         active_mats=int(active_mats),
         alpha_testing=alpha_testing,
+        has_env_map=env_map is not None,
         mesh_accel="brute",
         # the reference's rule: sort rays for K1 above BRUTE_MAX_TRIS
         # triangles.  Keyed on the padded count (ROADMAP F3); the threshold
@@ -240,7 +282,6 @@ def build_scene(doc: dict, models_dir: str | None = None,
         mesh_sort_rays=(brute is not None and brute.tri_verts.shape[0]
                         > mesh_brute.BRUTE_MAX_TRIS),
     )
-    check_ported(cfg)
 
     # the reference clamps every ray at RAY_INF (a 20-unit world): warn when
     # an object reaches far enough that part of the scene may fall past it
@@ -258,6 +299,7 @@ def build_scene(doc: dict, models_dir: str | None = None,
         quad_base=qbase, quad_edge0=qe0, quad_edge1=qe1, quad_normal=qn,
         quad_area=qarea,
         light_indices=np.asarray(light_indices or [0], np.int32),
+        medium_sigma_a=sigma_a, medium_sigma_s=sigma_s, medium_sigma_t=sigma_t,
     )
     if brute is not None:
         leaves.update(
@@ -274,4 +316,12 @@ def build_scene(doc: dict, models_dir: str | None = None,
     data = empty_scene_data(n_objects=n_obj, n_lights=1, device=device)
     for name, value in _np_leaves_to_torch(leaves, device).items():
         setattr(data, name, value)
+    if env_map is not None:
+        data.env_map = torch.as_tensor(np.asarray(env_map, np.float32),
+                                       device=device).contiguous()
+        dist = envmap.build_env_distribution(data.env_map)
+        data.env_cond_cdf = dist["cond_cdf"]
+        data.env_marg_cdf = dist["marg_cdf"]
+        data.env_weights = dist["weights"]
+        data.env_total = dist["total"]
     return cfg, data

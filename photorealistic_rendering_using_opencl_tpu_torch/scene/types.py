@@ -89,11 +89,6 @@ AU_K = (4.2223, 2.4628, 1.8063)
 PT_ETA = (2.6656, 2.1114, 1.6782)
 PT_K = (4.7023, 3.7726, 2.7284)
 
-# material bits the port refuses: a volume boundary needs the medium code
-# (ROADMAP M11); every other family of the reference is shaded
-UNPORTED_MATS = VOL
-
-
 @dataclasses.dataclass(frozen=True)
 class SceneConfig:
     """Static (hashable) scene facts; the same fields as the reference.
@@ -181,7 +176,9 @@ class SceneData:
     """Per-object SoA tensors, field for field the reference's SceneData.
 
     Objects are stored in canonical order [spheres | sdfs | boxes | quads];
-    the OBJ mesh has its own material slot (``obj_*``).  The BVH-walk
+    the OBJ mesh has its own material slot (``obj_*``); the medium's
+    sigmas, the HG anisotropy and the environment map (1x1 black when
+    absent) with its sampling tables are differentiable leaves too.  The BVH-walk
     leaves (``tri_verts``, ``tri_normals``, ``bvh_nodes``, ``bvh_links``,
     ``leaf_verts``) are placeholders in scenes the port loads itself: the
     walk is ROADMAP M12.  The brute tables ``bf_*`` carry the mesh.
@@ -242,6 +239,12 @@ class SceneData:
     @property
     def device(self) -> torch.device:
         return self.color.device
+
+    @property
+    def env_dist(self) -> dict:
+        """The environment map's sampling tables (ops/envmap.py)."""
+        return dict(cond_cdf=self.env_cond_cdf, marg_cdf=self.env_marg_cdf,
+                    weights=self.env_weights, total=self.env_total)
 
 
 def _np_leaves_to_torch(leaves: dict, device) -> dict:

@@ -15,12 +15,15 @@ import pytest
 import torch
 
 from photorealistic_rendering_using_opencl_tpu_torch.models import pathtracer
+from photorealistic_rendering_using_opencl_tpu_torch.ops.camera_rays import default_camera
 from photorealistic_rendering_using_opencl_tpu_torch.ops.tonemap import tonemap
 from photorealistic_rendering_using_opencl_tpu_torch.runtime import app
 from photorealistic_rendering_using_opencl_tpu_torch.runtime.camera import InteractiveCamera
 from photorealistic_rendering_using_opencl_tpu_torch.runtime.checkpoint import load_checkpoint
 from photorealistic_rendering_using_opencl_tpu_torch.scene.loader import load_scene
-from photorealistic_rendering_using_opencl_tpu_torch.utils.image import read_hdr, read_png
+from photorealistic_rendering_using_opencl_tpu_torch.utils.image import (
+    read_hdr, read_png, write_hdr,
+)
 
 torch.set_num_threads(2)
 
@@ -147,10 +150,28 @@ def test_cli_needs_the_card_unless_told_otherwise(tmp_path):
 
 
 def test_cli_later_roadmap_flags_raise(tmp_path, monkeypatch):
-    r = _cli(ARGS + ["--device", "cpu", "-hdr", "sky.hdr", "-o",
-                     str(tmp_path / "x.png")])
-    assert r.returncode != 0 and "NotImplementedError" in r.stderr
-    assert "M11" in r.stderr
+    """``-hdr`` (ROADMAP M11, ported): the CLI lights the scene with an
+    equirect map it reads from a .hdr file, and its PNG is ``render``'s
+    image of the same scene and map (``while``, the progressive step's
+    method) through the same export; ``--sharded`` over more than one card
+    is still M15.  (The name is from when both raised.)"""
+    rng = np.random.default_rng(4)
+    env = rng.uniform(0.0, 3.0, (8, 16, 3)).astype(np.float32)
+    sky = str(tmp_path / "sky.hdr")
+    write_hdr(sky, env)
+    out = str(tmp_path / "x.png")
+    _ok(_cli(["-scene", "scenes/cornell_simple.json", "-width", "12",
+              "-height", "10", "-spp", "2", "--device", "cpu", "-hdr", sky,
+              "-o", out]))
+    env_read = read_hdr(sky)
+    cfg, sc = load_scene("scenes/cornell_simple.json", env_map=env_read,
+                         device="cpu")
+    assert cfg.has_env_map
+    img, _ = pathtracer.render(cfg, sc, default_camera(12, 10).pytree("cpu"),
+                                   12, 10, 2, method="while")
+    want = str(tmp_path / "want.png")
+    app._export(want, img, None, 0)
+    assert open(out, "rb").read() == open(want, "rb").read()
     args = types.SimpleNamespace(hdr=None, sharded=True)
     app._check_ported(args, torch.device("cpu"))  # one device: unsharded
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)

@@ -845,3 +845,102 @@ def test_cli_in_process_on_card(cuda, tmp_path):
     assert torch.equal(img, want) and torch.equal(alpha, want_a)
     plain = app.ldr_u8(tm.tonemap_plain(img.cpu())).astype(np.int32)
     assert np.abs(read_png(png).astype(np.int32) - plain).max() <= 1
+
+
+# ---------------------------------------------------------------------------
+# SDFs + mesh, media, env maps (BASELINE configs 3-5) at 64^2
+# ---------------------------------------------------------------------------
+
+def _slice8(cuda):
+    cs = _chip_smoke()
+    return cs, make_icosphere(**cs.CVC8_MESH)
+
+
+@pytest.mark.cuda
+def test_sdf_path_on_card_matches_cpu(cuda):
+    """sdf_demo.json + an icosphere at 64^2: one bounce on the same camera
+    rays within 1e-5 of the CPU on every pixel (the SDF values are bitwise
+    on both devices); the 8-bounce image's mean within 2e-3 (an ulp of a
+    sampled direction reaches an SDF normal magnified ~1e3)."""
+    from photorealistic_rendering_using_opencl_tpu_torch.models import integrator
+    cs, mesh = _slice8(cuda)
+    s = 64
+    px, py = pathtracer.pixel_grid(s, s, "cpu")
+    o, d = pathtracer.camera_rays_for_sample(
+        default_camera(s, s).pytree("cpu"), s, s, px, py, py * s + px, 0, 0)
+    got = []
+    for dev in ("cpu", cuda):
+        cfg, sc, _ = cs.sdf_scene(dev, mesh, bounces=1, side=s)
+        with torch.no_grad():
+            rad, _ = integrator.trace(cfg, sc, o.to(dev), d.to(dev),
+                                      (py * s + px).to(dev), 0, method="while")
+            cfg8, sc8, cam8 = cs.sdf_scene(dev, mesh, side=s)
+            deep, _ = pathtracer.render(cfg8, sc8, cam8, s, s, 2, seed=1,
+                                        method="regen")
+        got.append((rad.cpu(), deep.cpu()))
+    torch.testing.assert_close(got[1][0], got[0][0], rtol=1e-5, atol=1e-5)
+    assert abs(float(got[1][1].mean()) / float(got[0][1].mean()) - 1) < 2e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("medium", ["homogeneous", "exponential"])
+def test_media_path_on_card_matches_cpu(cuda, medium):
+    """cornell_media.json (and its height fog) + an icosphere, HG, 4
+    bounces, 64^2 x 1 spp by regen: every pixel within chip_smoke's
+    FWD_MEDIUM of the CPU but those whose traced path takes another
+    decision (at most 3%)."""
+    cs, mesh = _slice8(cuda)
+    m = None if medium == "homogeneous" else cs.MEDIUM_EXP
+    cs.path_traced_vs_cpu(cuda, f"media {medium}",
+                          lambda d: cs.media_scene(d, mesh, m, "hg", 4, 64),
+                          64, 1, 5, cs.FWD_MEDIUM)
+
+
+@pytest.mark.cuda
+def test_env_path_on_card_matches_cpu(cuda):
+    """materials.json lit by a 128 x 64 map through a thin lens, 4 bounces,
+    64^2 x 1 spp by regen: as the medium path, at chip_smoke's
+    FWD_MATERIALS with up to GOLDEN_PARTED of the pixels parted (refraction
+    and Fresnel at grazing angles magnify an ulp of a direction)."""
+    cs, _ = _slice8(cuda)
+    env = cs.seeded_env_map(64, 128)
+    cs.path_traced_vs_cpu(cuda, "env map",
+                          lambda d: cs.env_scene(d, env, 64, 4), 64, 1, 5,
+                          cs.FWD_MATERIALS, cs.GOLDEN_PARTED)
+
+
+@pytest.mark.cuda
+def test_env_map_gradient_on_card_matches_cpu(cuda):
+    """d mean(image) / d env_map through regen_scan, cornell_simple lit by
+    a 64 x 32 map through a thin lens, 32^2 x 2 spp, 2 bounces: every
+    pixel's path traced on both devices (chip_smoke.lane_trace); the
+    gradient of the mean over the pixels whose paths take the same
+    decisions within rtol 1e-4 / atol 1e-6 of the CPU's.  The map's
+    gradient is an indexed accumulation, whose atomic adds on the card
+    come in their own order: not bitwise."""
+    from photorealistic_rendering_using_opencl_tpu_torch.scene.loader import build_scene
+    cs, _ = _slice8(cuda)
+    env = cs.seeded_env_map(32, 64)
+    runs = []
+    for dev in ("cpu", cuda):
+        cfg, sc = build_scene(cs._doc("scenes/cornell_simple.json", 2),
+                              env_map=env, device=dev)
+        cam = dataclasses.replace(default_camera(32, 32),
+                                  **cs.THIN_LENS).pytree(dev)
+        n = pathtracer.calibrate_regen_iters(cfg, sc, cam, 32, 32, 2, seed=3)
+        em = sc.env_map.clone().requires_grad_()
+        img, _ = pathtracer.render(cfg, dataclasses.replace(sc, env_map=em),
+                                   cam, 32, 32, 2, seed=3,
+                                   method="regen_scan", regen_iters=n)
+        runs.append((cfg, sc, cam, img, em))
+    traces = [cs.lane_trace(cfg, sc, cam, 32, 2, 3, torch.arange(32 * 32))
+              for cfg, sc, cam, _, _ in runs[::-1]]
+    keep = (cs.trace_parting(*traces, 1e-5)[0] < 0).reshape(32, 32)
+    assert int((~keep).sum()) <= 0.03 * keep.numel()
+    grads = []
+    for _, _, _, img, em in runs:
+        k = keep.to(img.device)[..., None]
+        grads.append(torch.autograd.grad((img * k).sum() / (k.sum() * 3),
+                                         em)[0].cpu())
+    assert float(grads[0].abs().max()) > 0
+    torch.testing.assert_close(grads[1], grads[0], rtol=1e-4, atol=1e-6)

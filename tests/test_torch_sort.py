@@ -248,9 +248,10 @@ def test_scene_list_is_the_repos():
 
 @pytest.mark.parametrize("name", SCENES)
 def test_loader_sort_flag_matches_reference(name):
-    """mesh_sort_rays as the JAX loader sets it, on every scene both
-    packages load offline; the port refuses SDFs and media (ROADMAP M10,
-    M11), and neither finds cornell.json's teapot (F1)."""
+    """mesh_sort_rays (and the rest of the config) as the JAX loader sets
+    it, on every scene of scenes/ (SDFs, boxes and media included since
+    ROADMAP M10 and M11); neither package finds cornell.json's teapot
+    (F1)."""
     path = os.path.join(SCENE_DIR, name)
     try:
         jcfg, _ = j_loader.load_scene(path)
@@ -258,11 +259,10 @@ def test_loader_sort_flag_matches_reference(name):
         with pytest.raises(FileNotFoundError):
             loader.load_scene(path, device="cpu")
         return
-    try:
-        cfg, _ = loader.load_scene(path, device="cpu")
-    except NotImplementedError as e:
-        assert any(item in str(e) for item in ("M10", "M11")), e
-        return
+    cfg, _ = loader.load_scene(path, device="cpu")
     assert cfg.mesh_sort_rays == jcfg.mesh_sort_rays
+    for k, v in dataclasses.asdict(jcfg).items():
+        if k not in ("mesh_second_pass", "mesh_accel"):
+            assert getattr(cfg, k) == v, (name, k)
     if name == "cornell_hi.json":
         assert cfg.mesh_sort_rays and cfg.n_triangles == 81920

@@ -308,8 +308,37 @@ def test_bsdf_family_matches_reference(family):
 
 
 def test_volume_material_is_refused():
+    """A volume boundary (VOL, JSON type 5) beside a diffuse family, which
+    the port refused until ROADMAP M11: its lanes get the JAX package's
+    dispatch result, an invalid zero sample and zero value and pdf (the
+    reference has no VOL family), the diffuse lanes theirs.  (The name is
+    the refusal test's.)"""
     jcfg, _ = j_load("scenes/cornell_simple.json")
-    cfg = SceneConfig(**dataclasses.asdict(
-        dataclasses.replace(jcfg, active_mats=DIFF | (1 << 5))))
-    with pytest.raises(NotImplementedError, match="M11"):
-        bsdf.check_ported(cfg)
+    jcfg = dataclasses.replace(jcfg, active_mats=DIFF | (1 << 5))
+    cfg = SceneConfig(**dataclasses.asdict(jcfg))
+    wi, wo, mat, ex = _bsdf_inputs(DIFF)
+    vol = np.arange(wi.shape[0]) % 2 == 0
+    mat["mat_type"] = np.where(vol, 1 << 5, DIFF).astype(np.int32)
+    mat["lobes"] = np.asarray([default_lobes_for_type(int(t))
+                               for t in mat["mat_type"]], np.int32)
+    jm = j_bsdf.MatProps(**{k: jnp.asarray(v) for k, v in mat.items()})
+    tm = bsdf.MatProps(**{k: torch.from_numpy(v) for k, v in mat.items()})
+    bs, rt, u = ex["backside"], ex["ray_t"], ex["u"]
+    want = j_bsdf.sample(jcfg, jm, jnp.asarray(wi), jnp.asarray(bs),
+                         jnp.asarray(rt), *map(jnp.asarray, u))
+    got = bsdf.sample(cfg, tm, torch.from_numpy(wi), torch.from_numpy(bs),
+                      torch.from_numpy(rt), *map(torch.from_numpy, u))
+    for f in ("valid", "lobe", "wo", "pdf", "weight"):
+        _close(f"vol sample.{f}", getattr(got, f), getattr(want, f))
+    assert not got.valid[torch.from_numpy(vol)].any()
+    f_t = bsdf.evaluate(cfg, tm, torch.from_numpy(wi), torch.from_numpy(wo),
+                        torch.from_numpy(bs), torch.from_numpy(rt))
+    _close("vol evaluate", f_t,
+           j_bsdf.evaluate(jcfg, jm, jnp.asarray(wi), jnp.asarray(wo),
+                           jnp.asarray(bs), jnp.asarray(rt)))
+    _close("vol pdf", bsdf.pdf(cfg, tm, torch.from_numpy(wi),
+                               torch.from_numpy(wo)),
+           j_bsdf.pdf(jcfg, jm, jnp.asarray(wi), jnp.asarray(wo)))
+    assert not f_t[torch.from_numpy(vol)].any()
+    np.testing.assert_array_equal(
+        bsdf.nee_capable(tm).numpy(), np.asarray(j_bsdf.nee_capable(jm)))
