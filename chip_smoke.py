@@ -115,10 +115,10 @@ order, none of them optional and none wrapped in a fallback:
  18. Path B (BASELINE config 4): cornell_media.json (homogeneous, 12
      bounces, 64 scatter events) and its height fog (tests/golden_tool.py's
      exponential medium), each with icosphere_hi, under HG and Rayleigh:
-     regen 512^2 x 8 spp; under HG fwd+bwd regen_scan 512^2 x 4 spp over
-     the sigmas, phase_g and the colours; card against CPU at 64^2, 4
-     bounces, every lane traced: parted pixels left out, the rest within
-     FWD_MEDIUM.
+     regen 512^2 x 8 spp (the fog at 4); under HG fwd+bwd regen_scan
+     512^2 x 4 spp (the fog at 1) over the sigmas, phase_g and the
+     colours; card against CPU at 64^2, 4 bounces, every lane traced:
+     parted pixels left out, the rest within FWD_MEDIUM.
  19. Path C (BASELINE config 5): materials.json lit by a 2048 x 1024
      equirect map made from the seed, written by write_hdr and read back,
      thin-lens camera: the CLI -hdr at 1024^2 x 16 spp as a process and
@@ -130,6 +130,43 @@ order, none of them optional and none wrapped in a fallback:
      at 64^2 with a 128 x 64 map, 4 bounces, traced lanes, FWD_SHALLOW.
  20. The goldens sdf_demo, cornell_media, envmap and exponential_fog
      through render's default method on the card and the CPU.
+
+Phases 3-20 load their meshes with the brute backend (PRT_MESH_ACCEL=brute,
+inherited by the CLI's subprocesses), so K1 stays on every path they
+drove before the walk was ported; phases 21-24 take the card's own pick.
+
+ 21. W1 (csrc/bvh_walk.cu, the BVH walk) against its plain twin on the
+     card, on the cornell_hi tables: phase 3's random, camera and surface
+     populations (merged closest + any-hit batches of 524,288 lanes with
+     inactive lanes and capped t_init) and the render population (the
+     regen forward's RENDER_CALL-th merged batch through the walk): 0
+     mismatches in t, tri, u, v and node visits; W1's time by CUDA events
+     over 10 launches, its bound from its work counters, node visits a ray.
+ 22. The backend crossover: the whole mesh_closest call by each backend
+     (brute: the ray sort, K1 and the winner's validation; bvh: W1) on
+     icospheres of 320 to 327,680 triangles as cornell.json's mesh, for a
+     512^2 frame's camera rays and a regen dispatch's merged batch, CUDA
+     events, the backends in turns; brute up to 262,144 triangles.  The
+     loader's card rule (scene/loader.py: _pick_mesh_accel, the walk for
+     every mesh) is set from this table, and the phase logs whether it
+     agrees.
+ 23. cornell_hi with the card's pick at full width: regen 512^2 x 8 spp
+     (the mesh kernel counted, the 1-spp idle share), held against phase
+     6's brute frame: pixels whose path met another winner than K1's in a
+     dispatch (each dispatch also run through K1) are counted, every other
+     pixel bitwise; fwd+bwd regen_scan 512^2 x 4 spp over every float leaf
+     (the mesh kernel never in the backward); the traversal AOV at 512^2,
+     the node visits of a 64^2 centre crop bitwise the CPU's; a regen
+     512^2 x 2 spp of phase 22's 327,680-triangle icosphere through W1.
+ 24. BDPT: cornell_hi 512^2 x 8 spp at the default depth (13 mesh
+     dispatches a sample, tonemapped by K2, the 1-spp idle share); the same
+     through K1 at 256^2 x 2 spp; cornell_simple and multilight converged
+     against the unidirectional tracer at tests/test_bdpt.py's sizes, spp,
+     seeds and bounds (each estimate one batch of pixel x sample lanes);
+     card against CPU at 32^2 x 2 spp, depth 3, cornell.json with a
+     5,120-triangle icosphere, every decision recorded on both: pixels
+     that took another one left out (at most FLIP_PIXELS), the rest within
+     FWD_BDPT.
 
 Prints the kernels' JSON line (with each kernel's bound: the larger of its
 bytes over 3.35 TB/s and its operations over 67 TFLOP/s, the H100 SXM's
@@ -160,6 +197,17 @@ card's run again with those ops evaluated on the CPU; no result line.
     python3 chip_smoke.py --paths
 
 runs phases 1-2 and 17-20 alone; no result line.
+
+    python3 chip_smoke.py --walk
+
+runs phases 1-2 and 21-24 alone (phase 23 renders its own brute frame);
+no result line.
+
+    python3 chip_smoke.py --bdpt-bound
+
+runs phases 1-2 and phase 24's card-vs-CPU BDPT comparison on
+BDPT_BOUND_SEEDS under both backends, then with each of BDPT_FAULTS planted
+in the card's leg: the readings FWD_BDPT sits between; no result line.
 
     python3 chip_smoke.py --kernel-times [--port-root DIR]
 
@@ -3323,18 +3371,20 @@ def seeded_env_map(h=ENV_H, w=ENV_W, seed=ENV_SEED):
 
 
 def reset_counts():
-    from photorealistic_rendering_using_opencl_tpu_torch.ops import intersect, mesh_brute
+    from photorealistic_rendering_using_opencl_tpu_torch.ops import bvh_walk, intersect, mesh_brute
     from photorealistic_rendering_using_opencl_tpu_torch.ops import tonemap as tm
     mesh_brute.mesh_brute_kernel.launches = 0
+    bvh_walk.bvh_walk_kernel.launches = 0
     tm.tonemap_kernel.launches = 0
     intersect.sdf_march.calls = 0
     intersect.sdf_march.steps = 0
 
 
 def read_counts():
-    from photorealistic_rendering_using_opencl_tpu_torch.ops import intersect, mesh_brute
+    from photorealistic_rendering_using_opencl_tpu_torch.ops import bvh_walk, intersect, mesh_brute
     from photorealistic_rendering_using_opencl_tpu_torch.ops import tonemap as tm
     return dict(K1=mesh_brute.mesh_brute_kernel.launches,
+                W1=bvh_walk.bvh_walk_kernel.launches,
                 K2=tm.tonemap_kernel.launches,
                 sdf_marches=intersect.sdf_march.calls,
                 sdf_march_steps=intersect.sdf_march.steps)
@@ -3385,8 +3435,9 @@ def path_forward(label, cfg, scene, cam, w, spp, method, gpu_line,
         fail(f"{label}: image of shape {a.shape} is not all finite")
     if counts["K2"] != 1:
         fail(f"{label}: K2 launched {counts['K2']} times, not once")
-    if cfg.has_mesh and counts["K1"] == 0:
-        fail(f"{label}: K1 never launched")
+    mesh_kernel = "W1" if cfg.mesh_accel == "bvh" else "K1"
+    if cfg.has_mesh and counts[mesh_kernel] == 0:
+        fail(f"{label}: {mesh_kernel} never launched")
     if cfg.n_sdfs and counts["sdf_marches"] == 0:
         fail(f"{label}: no SDF march")
 
@@ -3406,7 +3457,8 @@ def path_forward(label, cfg, scene, cam, w, spp, method, gpu_line,
                 f"idle share {idle:.3f}")
     log(f"  {label}: {w}^2 x {spp} spp by {method}: {secs:.3f} s, "
         f"{out['samples_per_s']:.0f} samples/s, mean radiance "
-        f"{a.mean():.6f}; K1 {counts['K1']}, K2 {counts['K2']}, SDF marches "
+        f"{a.mean():.6f}; K1 {counts['K1']}, W1 {counts['W1']}, K2 "
+        f"{counts['K2']}, SDF marches "
         f"{counts['sdf_marches']} ({counts['sdf_march_steps']} steps){note}; "
         f"on {gpu_line}")
     return img, out
@@ -3447,10 +3499,11 @@ def path_fwd_bwd(label, cfg, scene, cam, w, spp, leaves, gpu_line, seed=3,
     secs = time.perf_counter() - t0
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    if counts["K1"] != counts_fwd["K1"]:
-        fail(f"{label} fwd+bwd: K1 launched in the backward")
-    if cfg.has_mesh and counts["K1"] != pathtracer.scan_iterations(n_iters):
-        fail(f"{label} fwd+bwd: K1 {counts['K1']} != iterations")
+    mk = "W1" if cfg.mesh_accel == "bvh" else "K1"
+    if (counts["K1"], counts["W1"]) != (counts_fwd["K1"], counts_fwd["W1"]):
+        fail(f"{label} fwd+bwd: a mesh kernel launched in the backward")
+    if cfg.has_mesh and counts[mk] != pathtracer.scan_iterations(n_iters):
+        fail(f"{label} fwd+bwd: {mk} {counts[mk]} != iterations")
     required = names if required is None else required
     for k, g in zip(names, grads):
         if g is not None and not bool(torch.isfinite(g).all()):
@@ -3464,7 +3517,8 @@ def path_fwd_bwd(label, cfg, scene, cam, w, spp, leaves, gpu_line, seed=3,
     log(f"  {label} fwd+bwd {w}^2 x {spp} spp (regen_scan, {n_iters} "
         f"iterations): {secs:.3f} s (forward {t_fwd:.3f} s), "
         f"{out['samples_per_s']:.0f} samples/s, peak {peak:.2f} GiB, K1 "
-        f"{counts['K1']} (none in the backward), SDF marches "
+        f"{counts['K1']}, W1 {counts['W1']} (none in the backward), SDF "
+        "marches "
         f"{counts['sdf_marches']} ({counts['sdf_march_steps']} steps); "
         "|grad| max " + ", ".join(f"{k} {v:.3g}"
                                   for k, v in out["grad_max"].items())
@@ -3691,14 +3745,17 @@ def phase_media(dev, gpu_line, spp=8, fb_spp=4):
             label = f"B {medium} {phase}"
             cfg, scene, cam = media_scene(dev, mesh, doc_medium, phase)
             first = (medium, phase) == ("homogeneous", "hg")
-            res = {"forward": path_forward(label, cfg, scene, cam, w, spp,
-                                           "regen", gpu_line,
-                                           profile=first)[1]}
+            # the height fog's forward frames at half the spp, for time
+            res = {"forward": path_forward(
+                label, cfg, scene, cam, w,
+                spp if medium == "homogeneous" else spp // 2, "regen",
+                gpu_line, profile=first)[1]}
             if phase == "hg":
-                # the height fog's paths are ~5x longer: half the spp
+                # the height fog's paths are ~5x longer: a quarter of the
+                # spp (its fwd+bwd is the script's longest step)
                 res["fwd_bwd"] = path_fwd_bwd(
                     label, cfg, scene, cam, w,
-                    fb_spp if medium == "homogeneous" else fb_spp // 2,
+                    fb_spp if medium == "homogeneous" else fb_spp // 4,
                     ["medium_sigma_s", "medium_sigma_t", "phase_g", "color"],
                     gpu_line)
             out[f"{medium} {phase}"] = res
@@ -3904,6 +3961,839 @@ def phase_goldens_slice8(dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 21-24: the BVH walk W1, the backend rule, the default path, BDPT
+# ---------------------------------------------------------------------------
+
+# W1's FP32 operations (an FMA counts 2): a slab test, the 6 slab distances
+# (a difference and a product each) 12, the 6 per-axis min/max 6, entry and
+# exit 6, the test 1; a triangle test, the 9 differences of e1, e2 and c,
+# two crosses (3 products, 3 FMAs) 18, four dot products (a product, 2
+# FMAs) 20, the reciprocal and its guard 4, u, v and t 3, w 2, the tests 5
+W1_SLAB_FLOPS = 25
+W1_TRI_FLOPS = 61
+# a node visit reads its 32-byte row and its octant's 8-byte links; a leaf
+# entered, its 144-byte row; a ray, its origin, direction, t_init and two
+# flags, and writes t, tri, u and v
+W1_VISIT_BYTES, W1_LEAF_BYTES, W1_RAY_BYTES = 40, 144, 46
+# W1's bound has three terms, the largest of which it is: the bytes only
+# device memory can give (the walk's tables once, the rays' own bytes) at
+# HBM_BYTES_PER_S; every byte a visit, a leaf and a ray move, which the
+# tables' re-reads take from the 50 MB L2, at the L2's read rate, which
+# this run measures (L2_PROBE_SRC); the FP32 operations at
+# FP32_FLOP_PER_S.  The probe reads a warm L2_PROBE_BYTES buffer
+# L2_PROBE_PASSES times in one launch, 16 bytes a load cached in the L2
+# alone (ld.global.cg, past the SMs' L1), from every SM; the rate is its
+# bytes over its time, CUDA events over L2_PROBE_REPS launches
+L2_PROBE_BYTES = 8 << 20
+L2_PROBE_PASSES = 64
+L2_PROBE_REPS = 20
+L2_PROBE_SRC = r"""
+#include <cuda_runtime.h>
+__global__ void l2_probe_kernel(const float4* __restrict__ buf, int n4,
+                                int passes, float* __restrict__ out) {
+  int stride = gridDim.x * blockDim.x;
+  int i0 = blockIdx.x * blockDim.x + threadIdx.x;
+  float acc = 0.f;
+#pragma unroll 4
+  for (int p = 0; p < passes; ++p)
+    for (int i = i0; i < n4; i += stride) {
+      float4 v = __ldcg(buf + i);
+      acc += v.x + v.y + v.z + v.w;
+    }
+  out[i0] = acc;
+}
+extern "C" int prt_l2_probe(const void* buf, int n4, int passes,
+                            void* out, int blocks, void* stream) {
+  l2_probe_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(
+      (const float4*)buf, n4, passes, (float*)out);
+  return (int)cudaGetLastError();
+}
+"""
+# the crossover sweep: icosphere subdivisions (320 to 327,680 triangles),
+# placed as cornell_hi's icosphere_hi.obj, as cornell.json's mesh
+SWEEP_SUBDIVS = (2, 3, 4, 5, 6, 7)
+SWEEP_MESH = dict(radius=1.2, center=(0.0, -0.8, 0.0))
+SWEEP_REPS = 5
+# phase 23: pixels of the walk's frame whose path met another winner than
+# K1's (den-multiplied ties at grazing angles) may differ from phase 6's
+# brute frame; at most this share of them
+WALK_PARTED_PIXELS = 0.01
+# phase 24: tests/test_bdpt.py's converged comparisons (scene, side, spp,
+# seeds of the unidirectional and of the bidirectional estimate, bounds on
+# the mean and on a pixel)
+BDPT_CONVERGED = {
+    "cornell_simple": ("scenes/cornell_simple.json", 10, 512, 3, 7, 0.03,
+                       0.12),
+    "multilight": ("scenes/multilight.json", 8, 1024, 3, 7, 0.06, None),
+}
+# phase 24: card against CPU, the bound on BDPT pixels that took the same
+# decisions (|card - CPU| <= FWD_BDPT * (1 + |CPU|)).  A connection divides
+# by the squared distance between the two vertices it joins and is weighted
+# by ratios of area pdfs, which magnify an ulp of a ray.  Read by
+# --bdpt-bound on an H100 (cornell.json + 5,120 triangles, 32^2 x 2 spp,
+# depth 3): on seeds 3, 11 and 29 under each backend the largest clean
+# reading was 8.64e-5 (seed 11, both backends; the others 3.5e-6 to
+# 3.8e-6); with a fault planted in the card's leg, 0.32 (the far MIS patch
+# dropped) and 0.35 (the near one), and a dropped strategy parted 516 of
+# 1,024 pixels.  The bound sits 5.8x above the first and 650x below the
+# second; it is the bound of tests/test_torch_grad.py's 32-bounce frames.
+FWD_BDPT = 5e-4
+# phase 24: camera, light and connection dispatches of one BDPT sample at
+# the default depth cap 6: 7 camera vertices, 5 light vertices past the
+# first, one merged connection batch
+BDPT_DISPATCHES = 7 + 5 + 1
+
+
+def same_bits(a, b) -> bool:
+    import torch
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def l2_rate(dev) -> dict:
+    """The L2's read rate on this card, in bytes a second, by the probe of
+    L2_PROBE_SRC (built here by nvcc) -> {"rate", "probe_ms", "bytes"}."""
+    import ctypes
+
+    import torch
+    from photorealistic_rendering_using_opencl_tpu_torch.ops import _cuda
+    out_dir = os.path.join(_cuda.BUILD_DIR, f"l2_probe.{os.getpid()}")
+    os.makedirs(out_dir, exist_ok=True)
+    src, so = (os.path.join(out_dir, f"l2_probe.{x}") for x in ("cu", "so"))
+    with open(src, "w") as fh:
+        fh.write(L2_PROBE_SRC)
+    res = subprocess.run([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-o",
+                          so, src], capture_output=True, text=True,
+                         timeout=600)
+    if res.returncode != 0:
+        fail(f"L2 probe: nvcc failed:\n{res.stdout}{res.stderr}")
+    fn = ctypes.CDLL(so).prt_l2_probe
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    n4 = L2_PROBE_BYTES // 16
+    blocks = torch.cuda.get_device_properties(dev).multi_processor_count * 8
+    buf = torch.rand(n4 * 4, device=dev)
+    out = torch.empty(blocks * 256, device=dev)
+
+    def launch():
+        code = fn(buf.data_ptr(), n4, L2_PROBE_PASSES, out.data_ptr(),
+                  blocks, torch.cuda.current_stream(dev).cuda_stream)
+        if code:
+            fail(f"L2 probe: launch failed ({code})")
+
+    ms = cuda_ms(launch, L2_PROBE_REPS)
+    if not torch.isfinite(out).all():
+        fail("L2 probe: its sums are not finite")
+    moved = L2_PROBE_BYTES * L2_PROBE_PASSES
+    return dict(rate=moved / (ms * 1e-3), probe_ms=ms, bytes=moved)
+
+
+def w1_bound(scene, b, counters, l2) -> dict:
+    """W1's bound on batch ``b`` from its work counters (visits, leaves
+    entered, triangle tests) and ``l2``'s rate: the largest of the HBM,
+    L2 and FP32 terms (see L2_PROBE_BYTES), in ms."""
+    import torch
+    visits, leaf_visits, tests = counters
+    n = b["origin"].shape[0]
+    ray_bytes = n * W1_RAY_BYTES
+    # the links of the octants this batch's active lanes walk, every node
+    # and leaf row (which of them the walk reads is not counted)
+    d = b["direction"][b["active"]] if b["active"] is not None \
+        else b["direction"]
+    octants = torch.unique(((d[:, 0] < 0).int() | ((d[:, 1] < 0).int() << 1)
+                            | ((d[:, 2] < 0).int() << 2))).numel()
+    n_nodes = scene.bvh_nodes.shape[0]
+    table_bytes = (scene.bvh_nodes.numel() * 4 + octants * n_nodes * 8
+                   + scene.leaf_verts.numel() * 4)
+    terms = {
+        "hbm": (table_bytes + ray_bytes) / HBM_BYTES_PER_S * 1e3,
+        "l2": (visits * W1_VISIT_BYTES + leaf_visits * W1_LEAF_BYTES
+               + ray_bytes) / l2["rate"] * 1e3,
+        "fp32": (visits * W1_SLAB_FLOPS + tests * W1_TRI_FLOPS)
+                / FP32_FLOP_PER_S * 1e3}
+    top = max(terms, key=terms.get)
+    return dict(bound=terms[top], by="operations" if top == "fp32"
+                else "bytes", term=top, terms_ms=terms)
+
+
+def w1_compare(name, scene, b, problems, l2):
+    """One batch through W1 (node visits and work counters on) and the
+    twin on the card: 0 mismatches in t, tri, u, v and visits; W1's time
+    by CUDA events over 10 launches of the render path's form, the twin's
+    by the host clock (it syncs at every node step; under the profiler its
+    ~10^5 launches take minutes), and W1's bound from this batch's
+    counters (w1_bound)."""
+    import torch
+    from photorealistic_rendering_using_opencl_tpu_torch.ops import bvh_walk, intersect
+    nodes, links, leaves = scene.bvh_nodes, scene.bvh_links, scene.leaf_verts
+    args = (b["origin"], b["direction"], b["t_init"], b["active"],
+            b["any_hit"])
+    counters = torch.zeros(bvh_walk.W1_COUNTERS, dtype=torch.int64,
+                           device=scene.device)
+    got = bvh_walk.bvh_walk_kernel(nodes, links, leaves, *args,
+                                   count_steps=True, counters=counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = intersect._bvh_traverse_chunk(
+        scene, b["origin"], b["direction"], b["t_init"], b["any_hit"],
+        b["active"], count_steps=True)
+    torch.cuda.synchronize()
+    twin_ms = (time.perf_counter() - t0) * 1e3
+    bad = {k: int((x.view(torch.int32) != y.view(torch.int32)).sum())
+           if x.dtype == torch.float32 else int((x != y).sum())
+           for k, x, y in zip(("t", "tri", "u", "v", "steps"), got, want)}
+    if any(bad.values()):
+        problems.append(f"W1 {name}: mismatches against the twin {bad}")
+
+    def launch():
+        bvh_walk.bvh_walk_kernel(nodes, links, leaves, *args)
+
+    ms = cuda_ms(launch, 10)
+    n = b["origin"].shape[0]
+    visits, leaf_visits, tests = (int(x) for x in counters.tolist())
+    if visits != int(got[4].sum()):
+        problems.append(f"W1 {name}: counters {visits} visits, steps "
+                        f"{int(got[4].sum())}")
+    wb = w1_bound(scene, b, (visits, leaf_visits, tests), l2)
+    bound, by = wb["bound"], wb["by"]
+    active = max(int(b["active"].sum()), 1)
+    out = dict(n=n, ms=ms, plain_ms=twin_ms, bound=bound, by=by,
+               bound_term=wb["term"], bound_terms_ms=wb["terms_ms"],
+               visits_per_ray=visits / active,
+               leaf_visits_per_ray=leaf_visits / active,
+               tri_tests_per_ray=tests / active,
+               max_visits=int(got[4].max()), hits=int((got[1] >= 0).sum()),
+               mismatches=sum(bad.values()))
+    log(f"  W1 {name}: N={n}, {ms:.4f} ms (CUDA events, 10 launches), twin "
+        f"{twin_ms:.3f} ms (host clock, one call), bound {bound:.4f} ms "
+        f"({wb['term']}: " + ", ".join(f"{k} {v:.4f}" for k, v in
+                                        wb["terms_ms"].items())
+        + f"; W1 {ms / bound:.2f}x it); {out['visits_per_ray']:.1f} node "
+        f"visits, {out['leaf_visits_per_ray']:.2f} leaves entered, "
+        f"{out['tri_tests_per_ray']:.2f} triangle tests an active ray (worst "
+        f"lane {out['max_visits']} visits); {out['hits']} hits; mismatches "
+        f"{bad}")
+    return out, got
+
+
+def regen_dispatch(cfg, scene, w, spp, call):
+    """The merged batch the regen forward of ``scene`` at w^2 x spp, seed 0,
+    sends to ``mesh_closest`` at its ``call``-th call (the render stops
+    there), as a kernel's wrapper receives it."""
+    import torch
+    from photorealistic_rendering_using_opencl_tpu_torch.models import pathtracer
+    from photorealistic_rendering_using_opencl_tpu_torch.ops import intersect
+    from photorealistic_rendering_using_opencl_tpu_torch.ops.camera_rays import (
+        default_camera,
+    )
+
+    class Captured(Exception):
+        pass
+
+    real = intersect.mesh_closest
+    calls = []
+
+    def capture(cfg_, scene_, origin, direction, t_init, any_hit=False,
+                active=None, exclude_tri=None):
+        calls.append(None)
+        if len(calls) == call:
+            raise Captured(k1_batch(origin, direction, t_init, any_hit,
+                                    active, exclude_tri))
+        return real(cfg_, scene_, origin, direction, t_init, any_hit=any_hit,
+                    active=active, exclude_tri=exclude_tri)
+
+    intersect.mesh_closest = capture
+    try:
+        with torch.no_grad():
+            pathtracer.render(cfg, scene, default_camera(w, w).pytree(
+                scene.device), w, w, spp, seed=0, method="regen")
+        fail(f"the regen render made fewer than {call} mesh calls")
+    except Captured as got:
+        return got.args[0]
+    finally:
+        intersect.mesh_closest = real
+
+
+def phase_walk(dev):
+    """Phase 21: W1 against its twin on the card, on the cornell_hi tables:
+    phase 3's random, camera and surface populations (each a merged
+    closest + any-hit batch of 524,288 lanes with inactive lanes and capped
+    t_init) and the render population (the regen forward's RENDER_CALL-th
+    merged batch through the walk)."""
+    import dataclasses
+    from photorealistic_rendering_using_opencl_tpu_torch.scene.loader import load_scene
+
+    log("[21] W1 bvh_walk.cu against its plain twin")
+    t0 = time.perf_counter()
+    cfg, scene = load_scene(os.path.join(REPO, "scenes/cornell_hi.json"),
+                            models_dir=os.path.join(REPO, "scenes/assets"),
+                            device=dev)
+    log(f"  cornell_hi loaded: {cfg.n_triangles} triangles, "
+        f"{cfg.n_bvh_nodes} nodes, {scene.leaf_verts.shape[0]} leaves, "
+        f"{time.perf_counter() - t0:.2f} s")
+    pops = k1_populations(scene, dev)
+    pops["render"] = regen_dispatch(
+        dataclasses.replace(cfg, mesh_accel="bvh"), scene, FRAME, 8,
+        RENDER_CALL)
+    l2 = l2_rate(dev)
+    log(f"  L2 probe: a warm {L2_PROBE_BYTES >> 20} MB buffer read "
+        f"{L2_PROBE_PASSES} times in {l2['probe_ms']:.4f} ms: "
+        f"{l2['rate']:.4g} B/s")
+    problems, times = [], {}
+    for name, b in pops.items():
+        times[name], _ = w1_compare(name, scene, b, problems, l2)
+    if problems:
+        fail("; ".join(problems))
+    return times, l2
+
+
+def phase_crossover(dev, gpu_line):
+    """Phase 22: the whole ``mesh_closest`` call by each backend (brute: the
+    ray sort where the loader sets it, K1, the winner's validation; bvh:
+    W1) on icospheres of SWEEP_SUBDIVS as cornell.json's mesh, for a 512^2
+    frame's camera rays and for the regen forward's RENDER_CALL-th merged
+    batch; CUDA events over SWEEP_REPS calls, the backends in turns
+    (brute, bvh, bvh, brute).  The regen batch is the one phase 3's render
+    population is on cornell_hi (512^2 x 8 spp).  Brute runs up to 262,144
+    triangles.  Returns the table and the 327,680-triangle scene for phase
+    23."""
+    import dataclasses
+
+    import torch
+    from photorealistic_rendering_using_opencl_tpu_torch.models import pathtracer
+    from photorealistic_rendering_using_opencl_tpu_torch.ops import intersect, mesh_brute
+    from photorealistic_rendering_using_opencl_tpu_torch.ops.camera_rays import (
+        default_camera,
+    )
+    from photorealistic_rendering_using_opencl_tpu_torch.scene import loader
+    from photorealistic_rendering_using_opencl_tpu_torch.scene.obj import make_icosphere
+
+    log(f"[22] backend crossover: mesh_closest by K1 and by W1, on {gpu_line}")
+    w = FRAME
+    rows, big = [], None
+    for sub in SWEEP_SUBDIVS:
+        t0 = time.perf_counter()
+        mesh = make_icosphere(sub, **SWEEP_MESH)
+        cfg, scene = loader.build_scene(_doc("scenes/cornell.json"),
+                                        mesh_override=mesh, device=dev)
+        t_load = time.perf_counter() - t0
+        n_tris = cfg.n_triangles
+        backends = (("brute", "bvh")
+                    if n_tris <= mesh_brute.BRUTE_STREAM_MAX_TRIS
+                    else ("bvh",))
+        cam = default_camera(w, w).pytree(dev)
+        px, py = pathtracer.pixel_grid(w, w, dev)
+        o, d = pathtracer.camera_rays_for_sample(cam, w, w, px, py,
+                                                 py * w + px, 0, 0)
+        batches = {
+            "camera": k1_batch(o, d, 20.0, False, None, None),
+            "regen dispatch": regen_dispatch(
+                dataclasses.replace(cfg, mesh_accel=backends[0]), scene, w,
+                8, RENDER_CALL)}
+        for pop, b in batches.items():
+            ms = {k: [] for k in backends}
+            outs = {}
+
+            def call(accel):
+                return intersect.mesh_closest(
+                    dataclasses.replace(cfg, mesh_accel=accel), scene,
+                    b["origin"], b["direction"], b["t_init"],
+                    any_hit=b["any_hit"], active=b["active"],
+                    exclude_tri=b["exclude"] if accel == "brute" else None)
+
+            with torch.no_grad():
+                for accel in backends:
+                    outs[accel] = call(accel)
+                for accel in backends + tuple(reversed(backends)):
+                    ms[accel].append(cuda_ms(lambda: call(accel),
+                                             SWEEP_REPS))
+            hits = {k: int((v[1] >= 0).sum()) for k, v in outs.items()}
+            row = dict(triangles=n_tris, population=pop,
+                       lanes=b["origin"].shape[0], hits=hits,
+                       **{f"{k}_ms": sum(v) / len(v) for k, v in ms.items()})
+            row["faster"] = (min(backends, key=lambda k: row[f"{k}_ms"])
+                             if len(backends) > 1 else "bvh")
+            rows.append(row)
+            log(f"  {n_tris} triangles ({t_load:.1f} s to load), {pop}, "
+                f"{row['lanes']} lanes: "
+                + ", ".join(f"{k} {row[f'{k}_ms']:.4f} ms" for k in backends)
+                + f" (hits {hits}); faster: {row['faster']}")
+        if sub == SWEEP_SUBDIVS[-1]:
+            big = (cfg, scene)
+        else:
+            del scene
+    brute_wins = [r["triangles"] for r in rows if r["faster"] == "brute"]
+    walk_wins = [r["triangles"] for r in rows if r["faster"] == "bvh"
+                 and "brute_ms" in r]
+    rule = {n: loader._pick_mesh_accel(n, dev)
+            for n in sorted({r["triangles"] for r in rows})}
+    agrees = all(rule[r["triangles"]] == r["faster"] for r in rows
+                 if "brute_ms" in r)
+    log(f"  brute faster at {sorted(set(brute_wins))} triangles, the walk at "
+        f"{sorted(set(walk_wins))}; the loader's card rule ({rule}) "
+        f"{'agrees' if agrees else 'DISAGREES'} with this sweep")
+    return dict(rows=rows, rule=rule, rule_agrees=agrees), big
+
+
+def walk_to_brute_index(scene):
+    """[4L] int64: the brute tables' index of each leaf-major slot (-1 for a
+    padding slot).  Both tables hold the triangles in BVH order, the leaves
+    in preorder, each leaf a contiguous run."""
+    import torch
+    meta = scene.bvh_nodes[:, 7].contiguous().view(torch.int32).long()
+    count = meta & 7
+    count = count[count > 0]
+    first = torch.cumsum(count, 0) - count
+    slot = torch.arange(4, device=count.device)
+    idx = first[:, None] + slot[None, :]
+    return torch.where(slot[None, :] < count[:, None], idx, -1).reshape(-1)
+
+
+def parted_pixels(cfg_walk, scene, cam, w, spp):
+    """The walk's regen frame with every mesh dispatch also run through the
+    brute backend on the same lanes (its exclusion mapped to the brute
+    tables, as the brute frame would pass it) -> (the walk's image, a
+    [w*w] mask of pixels whose path met another winner or occlusion in
+    some dispatch).  A lane of the regen loop is a pixel; a merged batch
+    is its pixels' closest lanes and then each shadow batch's."""
+    import dataclasses
+
+    import torch
+    from photorealistic_rendering_using_opencl_tpu_torch.models import pathtracer
+    from photorealistic_rendering_using_opencl_tpu_torch.ops import intersect
+    from photorealistic_rendering_using_opencl_tpu_torch.ops.mesh_brute import (
+        _lane_tensor,
+    )
+    n = w * w
+    to_bf = walk_to_brute_index(scene)
+    cfg_b = dataclasses.replace(cfg_walk, mesh_accel="brute")
+    parted = torch.zeros(n, dtype=torch.bool, device=scene.device)
+    real = intersect.mesh_closest
+
+    def mapped(tri):
+        return torch.where(tri >= 0, to_bf[tri.clamp(min=0).long()],
+                           -1).to(torch.int32)
+
+    def both(cfg_, scene_, origin, direction, t_init, any_hit=False,
+             active=None, exclude_tri=None):
+        out = real(cfg_, scene_, origin, direction, t_init, any_hit=any_hit,
+                   active=active, exclude_tri=exclude_tri)
+        ex = None if exclude_tri is None else mapped(exclude_tri)
+        _, tri_b, _, _ = real(cfg_b, scene_, origin, direction, t_init,
+                              any_hit=any_hit, active=active, exclude_tri=ex)
+        tri_w = mapped(out[1])
+        ah = _lane_tensor(any_hit, origin.shape[0], torch.bool,
+                          origin.device, False)
+        differ = torch.where(ah, (tri_w >= 0) != (tri_b >= 0), tri_w != tri_b)
+        parted.logical_or_(differ.reshape(-1, n).any(0))
+        return out
+
+    intersect.mesh_closest = both
+    try:
+        with torch.no_grad():
+            img, _ = pathtracer.render(cfg_walk, scene, cam, w, w, spp,
+                                       seed=0, method="regen")
+    finally:
+        intersect.mesh_closest = real
+    return img, parted
+
+
+def phase_default_path(dev, gpu_line, brute_img, big):
+    """Phase 23: cornell_hi with the card's backend pick at full width:
+    forward regen 512^2 x 8 spp (the mesh kernel counted), held against
+    phase 6's brute frame; fwd+bwd regen_scan 512^2 x 4 spp over every
+    float leaf (the mesh kernel never in the backward); the traversal AOV
+    (bitwise the CPU's on a 64^2 centre crop); and a forward regen of
+    phase 22's 327,680-triangle icosphere."""
+    import dataclasses
+
+    import torch
+    from photorealistic_rendering_using_opencl_tpu_torch.models import pathtracer
+    from photorealistic_rendering_using_opencl_tpu_torch.ops import intersect
+    from photorealistic_rendering_using_opencl_tpu_torch.ops.camera_rays import (
+        default_camera,
+    )
+    from photorealistic_rendering_using_opencl_tpu_torch.scene.loader import load_scene
+
+    w = FRAME
+    path = os.path.join(REPO, "scenes/cornell_hi.json")
+    cfg, scene = load_scene(path, models_dir=os.path.join(REPO, "scenes/assets"),
+                            device=dev)
+    log(f"[23] default path: cornell_hi ({cfg.n_triangles} triangles) with "
+        f"the card's pick, mesh_accel={cfg.mesh_accel!r}")
+    cam = default_camera(w, w).pytree(dev)
+    out = {"mesh_accel": cfg.mesh_accel}
+    img, out["forward"] = path_forward("default regen", cfg, scene, cam, w, 8,
+                                       "regen", gpu_line, profile=True)
+    if brute_img is None:
+        with torch.no_grad():
+            brute_img, _ = pathtracer.render(
+                dataclasses.replace(cfg, mesh_accel="brute"), scene, cam, w,
+                w, 8, seed=0, method="regen")
+    if cfg.mesh_accel == "bvh":
+        img2, parted = parted_pixels(cfg, scene, cam, w, 8)
+        if not same_bits(img2, img):
+            fail("the walk's frame changed when its dispatches were shadowed "
+                 "by the brute backend")
+        differ = (img.view(torch.int32) != brute_img.view(torch.int32)
+                  ).any(-1).reshape(-1)
+        stray = differ & ~parted
+        out["against_brute"] = dict(
+            pixels_differ=int(differ.sum()), parted=int(parted.sum()),
+            unexplained=int(stray.sum()),
+            max_diff=float((img - brute_img).abs().max()))
+        log(f"  against phase 6's brute frame: {int(differ.sum())} pixels "
+            f"differ, {int(parted.sum())} pixels met another winner than "
+            f"K1's in some dispatch, {int(stray.sum())} differ without one; "
+            f"every other pixel bitwise")
+        if stray.any() or parted.float().mean() > WALK_PARTED_PIXELS:
+            fail(f"default path: {int(stray.sum())} pixels differ from the "
+                 f"brute frame with the same winners, {int(parted.sum())} "
+                 "parted")
+    elif not same_bits(img, brute_img):
+        fail("default path (brute): the frame differs from phase 6's")
+    leaves = [f.name for f in dataclasses.fields(scene)
+              if getattr(scene, f.name).is_floating_point()]
+    leaves += [f"camera.{k}" for k in cam]
+    out["fwd_bwd"] = path_fwd_bwd("default", cfg, scene, cam, w, 4, leaves,
+                                  gpu_line, required=("color", "obj_color"))
+
+    # the traversal AOV: the frame through the entry point, and the counts
+    # on a centre crop against the CPU's
+    side, c = w, min(w, 64)
+    y0 = x0 = (side - c) // 2
+    reset_counts()
+    with torch.no_grad():
+        aov = pathtracer.render_aov(cfg, scene, cam, side, side, "traversal")
+        px, py = pathtracer.pixel_grid(side, side, dev)
+        o, d = pathtracer.camera_rays_for_sample(
+            cam, side, side, px, py, py * side + px, 0, 0, jitter=False)
+        counts = intersect.traversal_cost(cfg, scene, o, d)
+    aov_counts = read_counts()
+    cfg_c, scene_c = load_scene(path, models_dir=os.path.join(
+        REPO, "scenes/assets"), device="cpu")
+    ys, xs = torch.meshgrid(torch.arange(y0, y0 + c),
+                            torch.arange(x0, x0 + c), indexing="ij")
+    pxc, pyc = xs.reshape(-1), ys.reshape(-1)
+    with torch.no_grad():
+        oc, dc = pathtracer.camera_rays_for_sample(
+            default_camera(side, side).pytree("cpu"), side, side, pxc, pyc,
+            pyc * side + pxc, 0, 0, jitter=False)
+        counts_cpu = intersect.traversal_cost(cfg_c, scene_c, oc, dc)
+    crop = counts.reshape(side, side)[y0:y0 + c, x0:x0 + c].cpu().reshape(-1)
+    if cfg_c.mesh_accel != cfg.mesh_accel:
+        log(f"  (the CPU picks {cfg_c.mesh_accel!r} for this mesh)")
+    if not torch.equal(crop, counts_cpu) or int(counts_cpu.max()) == 0:
+        fail("traversal AOV: the crop's counts differ from the CPU's")
+    if not bool(torch.isfinite(aov).all()):
+        fail("traversal AOV: non-finite pixels")
+    out["traversal"] = dict(frame_max=int(counts.max()),
+                            crop_max=int(counts_cpu.max()), **aov_counts)
+    log(f"  traversal AOV at {side}^2: counts max {int(counts.max())} "
+        f"(W1 {aov_counts['W1']}, K1 {aov_counts['K1']} launches); the "
+        f"{c}x{c} centre crop bitwise the CPU's (max {int(counts_cpu.max())})")
+
+    cfg_big, scene_big = big
+    _, out["big_mesh"] = path_forward(
+        f"icosphere {cfg_big.n_triangles} triangles regen", cfg_big,
+        scene_big, cam, w, 2, "regen", gpu_line)
+    if cfg_big.mesh_accel != "bvh" or out["big_mesh"]["W1"] == 0:
+        fail("the 327,680-triangle frame did not run through W1")
+    return out, (cfg, scene)
+
+
+def lanes_estimate(cfg, scene, w, spp, seed, method):
+    """The image of render(method=...) at w^2 x spp from ONE batch of
+    w*w*spp lanes, lane (sample, pixel): each lane's radiance is the one
+    render's per-sample loop gives that (pixel, sample), the RNG being
+    keyed on both; "bdpt" runs bidirectional.trace, "while"
+    integrator.trace."""
+    import torch
+    from photorealistic_rendering_using_opencl_tpu_torch.models import (
+        bidirectional, integrator, pathtracer,
+    )
+    from photorealistic_rendering_using_opencl_tpu_torch.ops.camera_rays import (
+        default_camera,
+    )
+    dev = scene.device
+    px, py = pathtracer.pixel_grid(w, w, dev)
+    pxl, pyl = px.repeat(spp), py.repeat(spp)
+    sample = torch.arange(spp, device=dev).repeat_interleave(w * w)
+    pixel = pyl * w + pxl
+    o, d = pathtracer.camera_rays_for_sample(
+        default_camera(w, w).pytree(dev), w, w, pxl, pyl, pixel, sample, seed)
+    with torch.no_grad():
+        if method == "bdpt":
+            rad = bidirectional.trace(cfg, scene, o, d, pixel, sample,
+                                      seed=seed)
+        else:
+            rad, _ = integrator.trace(cfg, scene, o, d, pixel, sample,
+                                      seed=seed, method="while")
+    return rad.reshape(spp, w, w, 3).mean(0)
+
+
+def bdpt_decisions(cfg, scene, cam, w, spp, seed, depth):
+    """render(method="bdpt") with every discrete decision of each sample
+    recorded per pixel -> (image, [w*w, K] int64): the camera and light
+    subpaths' valid flags and, at valid vertices, their mesh ids and
+    specular and on-light flags, and for each connection whether it
+    carries light (a candidate with a non-zero contribution) and, if so,
+    its visibility.  Two runs whose rows differ at a pixel took another
+    decision there."""
+    import torch
+    from photorealistic_rendering_using_opencl_tpu_torch.models import bidirectional, pathtracer
+    rows = []
+    real_stack = bidirectional._stack
+    real_vis = bidirectional.connection_visible
+
+    def stack(recs, pdf_rev):
+        sp = real_stack(recs, pdf_rev)
+        # a vertex past the end of its path carries whatever its dead ray
+        # met, which no strategy reads: -1 there
+        rows.extend([sp.valid] + [torch.where(sp.valid, x.to(torch.int64), -1)
+                                  for x in (sp.mesh_id, sp.spec,
+                                            sp.is_light)])
+        return sp
+
+    def vis(cfg_, scene_, conns):
+        out = real_vis(cfg_, scene_, conns)
+        # a connection that carries nothing (a zero contribution, e.g. the
+        # back of the light) cannot change the pixel whatever its verdict
+        live = [c.cand & (c.value != 0).any(-1) for c in conns]
+        rows.extend([x[:, None] for x in live]
+                    + [(x & v)[:, None] for x, v in zip(live, out)])
+        return out
+
+    bidirectional._stack, bidirectional.connection_visible = stack, vis
+    try:
+        with torch.no_grad():
+            img, _ = pathtracer.render(cfg, scene, cam, w, w, spp, seed=seed,
+                                       method="bdpt", bdpt_max_depth=depth)
+    finally:
+        bidirectional._stack = real_stack
+        bidirectional.connection_visible = real_vis
+    return img, torch.cat([r.to(torch.int64).cpu() for r in rows], dim=1)
+
+
+def bdpt_card_vs_cpu(dev, build, w, spp, seed, depth, bound=FWD_BDPT,
+                     parted_limit=FLIP_PIXELS, card_fault=None):
+    """A BDPT frame of ``build(device) -> (cfg, scene, cam)`` on the card
+    and on the CPU with its decisions recorded: pixels where they differ
+    are left out (at most ``parted_limit`` of them), every other pixel
+    within ``bound``.  ``reading`` is the least bound the kept pixels pass
+    (their largest |card - CPU| / (1 + |CPU|)).  With ``card_fault`` (a
+    name of BDPT_FAULTS) the card's leg runs with that fault planted and
+    nothing fails: the readings are returned."""
+    import contextlib
+
+    import torch
+    runs = {}
+    for kind, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        cfg, scene, cam = build(d)
+        with (plant_bdpt_fault(card_fault) if kind == "card" and card_fault
+              else contextlib.nullcontext()):
+            runs[kind] = bdpt_decisions(cfg, scene, cam, w, spp, seed, depth)
+    (g, sig_g), (c, sig_c) = runs["card"], runs["cpu"]
+    g = g.cpu()
+    parted = (sig_g != sig_c).any(1).reshape(w, w)
+    diff = (g - c).abs()
+    beyond = (diff > bound + bound * c.abs()).any(-1)
+    stray = beyond & ~parted
+    kept = (diff / (1.0 + c.abs())).amax(-1)[~parted]
+    out = dict(max_diff=float(diff.max()), beyond=int(beyond.sum()),
+               parted=int(parted.sum()), unexplained=int(stray.sum()),
+               kept_max_diff=float(diff[~parted].max()),
+               reading=float(kept.max()) if kept.numel() else 0.0)
+    if card_fault is None and (stray.any()
+                               or parted.float().mean() > parted_limit):
+        fail(f"BDPT card vs CPU: {int(stray.sum())} pixels beyond {bound} "
+             f"with the same decisions, {int(parted.sum())} parted")
+    return out
+
+
+# --bdpt-bound: planted faults, each in the card's leg only.  "mis_patch":
+# the MIS weights lose the camera-side junction patch (pdf_rev_pt read as
+# 1); "mis_patch_far": the patch one vertex farther (pdf_rev_ptm);
+# "strategy_dropped": the (s=1, t=2) strategy (next-event estimation at
+# the first surface vertex) carries nothing
+BDPT_FAULTS = ("mis_patch", "mis_patch_far", "strategy_dropped")
+BDPT_BOUND_SEEDS = (3, 11, 29)
+
+
+def plant_bdpt_fault(fault):
+    """A context in which ``bidirectional._mis_weight`` carries ``fault``
+    (one of BDPT_FAULTS)."""
+    import contextlib
+
+    import torch
+    from photorealistic_rendering_using_opencl_tpu_torch.models import bidirectional
+    real = bidirectional._mis_weight
+
+    def faulty(cam, lig, s, t, pt, ptm, qs, qsm):
+        if fault == "mis_patch":
+            return real(cam, lig, s, t, torch.ones_like(pt), ptm, qs, qsm)
+        if fault == "mis_patch_far":
+            return real(cam, lig, s, t, pt, torch.ones_like(ptm), qs, qsm)
+        w = real(cam, lig, s, t, pt, ptm, qs, qsm)
+        return torch.zeros_like(w) if (s, t) == (1, 2) else w
+
+    @contextlib.contextmanager
+    def planted():
+        bidirectional._mis_weight = faulty
+        try:
+            yield
+        finally:
+            bidirectional._mis_weight = real
+
+    if fault not in BDPT_FAULTS:
+        fail(f"unknown BDPT fault {fault}")
+    return planted()
+
+
+def bdpt_vs_cpu_scene(side):
+    """phase 24's card-vs-CPU scene: cornell.json with a 5,120-triangle
+    icosphere -> build(device, accel=None) -> (cfg, scene, cam), the
+    backend the device's pick unless ``accel`` names one."""
+    import dataclasses
+
+    from photorealistic_rendering_using_opencl_tpu_torch.ops.camera_rays import (
+        default_camera,
+    )
+    from photorealistic_rendering_using_opencl_tpu_torch.scene.loader import build_scene
+    from photorealistic_rendering_using_opencl_tpu_torch.scene.obj import make_icosphere
+    mesh = make_icosphere(4, **SWEEP_MESH)
+
+    def build(d, accel=None):
+        c, sc = build_scene(_doc("scenes/cornell.json"), mesh_override=mesh,
+                            device=d)
+        if accel is not None:
+            c = dataclasses.replace(c, mesh_accel=accel)
+        return c, sc, default_camera(side, side).pytree(d)
+    return build
+
+
+def phase_bdpt_bound(dev):
+    """--bdpt-bound: phase 24's card-vs-CPU comparison (32^2 x 2 spp, depth
+    3) on BDPT_BOUND_SEEDS under both backends (the CPU leg the same
+    backend), then with each of BDPT_FAULTS planted in the card's leg
+    (the walk, the first seed): the readings FWD_BDPT sits between."""
+    side, depth = 32, 3
+    build = bdpt_vs_cpu_scene(side)
+    out = {"clean": [], "faults": {}}
+    log(f"[24b] BDPT card vs CPU readings (bound FWD_BDPT = {FWD_BDPT})")
+    for accel in ("bvh", "brute"):
+        for seed in BDPT_BOUND_SEEDS:
+            t0 = time.perf_counter()
+            r = bdpt_card_vs_cpu(dev, lambda d: build(d, accel), side, 2,
+                                 seed, depth)
+            r.update(accel=accel, seed=seed)
+            out["clean"].append(r)
+            log(f"  {accel} seed {seed}: reading {r['reading']:.3g}, "
+                f"{r['parted']} parted, max diff {r['max_diff']:.3g} "
+                f"({time.perf_counter() - t0:.1f} s)")
+    for fault in BDPT_FAULTS:
+        r = bdpt_card_vs_cpu(dev, lambda d: build(d, "bvh"), side, 2,
+                             BDPT_BOUND_SEEDS[0], depth, card_fault=fault)
+        out["faults"][fault] = r
+        log(f"  planted {fault}: reading {r['reading']:.3g}, {r['parted']} "
+            f"of {side * side} pixels parted, {r['beyond']} beyond the "
+            f"bound, max diff {r['max_diff']:.3g}")
+    clean = max(r["reading"] for r in out["clean"])
+    caught = {f: r["reading"] > FWD_BDPT or r["parted"] > FLIP_PIXELS
+              * side * side for f, r in out["faults"].items()}
+    log(f"  largest clean reading {clean:.3g} (bound {FWD_BDPT}); faults "
+        f"caught: {caught}")
+    if clean > FWD_BDPT or not all(caught.values()):
+        fail("FWD_BDPT does not sit between the clean and faulted readings")
+    return out
+
+
+def phase_bdpt(dev, gpu_line, hi):
+    """Phase 24: BDPT.  cornell_hi (``hi``: phase 23's scene, the card's
+    backend) at 512^2 x 8 spp with the default depth, tonemapped (K2), the
+    mesh kernel counted (BDPT_DISPATCHES a sample) and the idle share of 1
+    spp; the same through K1 (brute) at 256^2 x 2 spp; cornell_simple and
+    multilight converged against the unidirectional tracer at
+    tests/test_bdpt.py's sizes, spp, seeds and bounds (each estimate one
+    batch of pixel x sample lanes); card against CPU at 32^2, depth 3, on
+    cornell.json with a 5,120-triangle icosphere (the walk on both)."""
+    import dataclasses
+    import warnings
+
+    import torch
+    from photorealistic_rendering_using_opencl_tpu_torch.models import pathtracer
+    from photorealistic_rendering_using_opencl_tpu_torch.ops.camera_rays import (
+        default_camera,
+    )
+    from photorealistic_rendering_using_opencl_tpu_torch.scene.loader import load_scene
+
+    log("[24] BDPT")
+    out = {}
+    cfg, scene = hi
+    w = FRAME
+    cam = default_camera(w, w).pytree(dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the depth cap's truncation note
+        _, out["cornell_hi"] = path_forward(
+            f"BDPT cornell_hi ({cfg.mesh_accel})", cfg, scene, cam, w, 8,
+            "bdpt", gpu_line, profile=True)
+        mk = "W1" if cfg.mesh_accel == "bvh" else "K1"
+        if out["cornell_hi"][mk] != BDPT_DISPATCHES * 8:
+            fail(f"BDPT: {mk} {out['cornell_hi'][mk]} launches, not "
+                 f"{BDPT_DISPATCHES} a sample")
+        cfg_b = dataclasses.replace(cfg, mesh_accel="brute")
+        cam_s = default_camera(256, 256).pytree(dev)
+        _, out["cornell_hi_brute"] = path_forward(
+            "BDPT cornell_hi (brute)", cfg_b, scene, cam_s, 256, 2, "bdpt",
+            gpu_line)
+        if out["cornell_hi_brute"]["K1"] != BDPT_DISPATCHES * 2:
+            fail(f"BDPT (brute): K1 {out['cornell_hi_brute']['K1']} "
+                 f"launches, not {BDPT_DISPATCHES} a sample")
+
+    for name, (path, side, spp, s_pt, s_bd, mean_rel, pixel_max) in \
+            BDPT_CONVERGED.items():
+        c, sc = load_scene(os.path.join(REPO, path), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pt = lanes_estimate(c, sc, side, spp, s_pt, "while")
+        bd = lanes_estimate(c, sc, side, spp, s_bd, "bdpt")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        rel = abs(float(pt.mean()) - float(bd.mean())) / float(pt.mean())
+        px_max = float((pt - bd).abs().max())
+        finite = bool(torch.isfinite(bd).all()) and bool((bd >= 0).all())
+        out[name] = dict(mean_pt=float(pt.mean()), mean_bdpt=float(bd.mean()),
+                         rel=rel, pixel_max=px_max, seconds=secs)
+        log(f"  {name} {side}^2 x {spp} spp: unidirectional mean "
+            f"{float(pt.mean()):.6f} (seed {s_pt}), BDPT {float(bd.mean()):.6f} "
+            f"(seed {s_bd}): rel {rel:.4f} (bound {mean_rel}), worst pixel "
+            f"{px_max:.4f}" + (f" (bound {pixel_max})" if pixel_max else "")
+            + f"; {secs:.2f} s for both")
+        if rel >= mean_rel or not finite or (
+                pixel_max is not None and px_max >= pixel_max):
+            fail(f"BDPT {name}: not converged to the unidirectional tracer")
+
+    side, depth = 32, 3
+    accel = {}
+    build_any = bdpt_vs_cpu_scene(side)
+
+    def build(d):
+        c, sc, cam_ = build_any(d)
+        accel[d.type] = c.mesh_accel
+        return c, sc, cam_
+
+    out["card_vs_cpu"] = r = bdpt_card_vs_cpu(dev, build, side, 2, 3, depth)
+    log(f"  card ({accel['cuda']}) against CPU ({accel['cpu']}), "
+        f"cornell.json + 5,120 triangles, {side}^2 x 2 spp, depth {depth}, "
+        f"every decision recorded: {r['parted']} pixels took another "
+        f"decision (left out), {r['beyond']} beyond {FWD_BDPT}, the kept "
+        f"pixels' max diff {r['kept_max_diff']:.3g}")
+    return out
+
+
 def phase_k1_sweep(dev, pops):
     """--k1-sweep: K1_SWEEP's configurations on phase 3's populations."""
     from photorealistic_rendering_using_opencl_tpu_torch.scene.loader import load_scene
@@ -3953,11 +4843,15 @@ def main(argv=None) -> int:
     sweep = argv == ["--k1-sweep"]
     census = argv == ["--op-census"]
     paths = argv == ["--paths"]
+    walk = argv == ["--walk"]
+    bdpt_bound = argv == ["--bdpt-bound"]
     times = argv[:1] == ["--kernel-times"] and (
         len(argv) == 1 or (len(argv) == 3 and argv[1] == "--port-root"))
-    if argv and not (kernels_only or sweep or census or times or paths):
+    if argv and not (kernels_only or sweep or census or times or paths
+                     or walk or bdpt_bound):
         fail(f"unknown arguments {argv}: none, --kernels-only, --k1-sweep, "
-             "--op-census, --paths or --kernel-times [--port-root DIR]")
+             "--op-census, --paths, --walk, --bdpt-bound or --kernel-times "
+             "[--port-root DIR]")
     root = os.path.abspath(argv[2]) if times and len(argv) == 3 else REPO
     if not os.path.isdir(os.path.join(root, PKG)):
         fail(f"the port package {PKG}/ is not in {root}")
@@ -4004,6 +4898,36 @@ def main(argv=None) -> int:
     def done(phase):
         log(f"  ({phase} done at {time.perf_counter() - t_start:.1f} s)")
 
+    def walk_phases(brute_img):
+        """Phases 21-24 with the card's own mesh backend pick."""
+        out = {}
+        out["w1"], out["l2"] = phase_walk(dev)
+        done(21)
+        out["crossover"], big = phase_crossover(dev, gpu_line)
+        done(22)
+        out["default"], hi = phase_default_path(dev, gpu_line, brute_img,
+                                                big)
+        del big
+        done(23)
+        out["bdpt"] = phase_bdpt(dev, gpu_line, hi)
+        done(24)
+        return out
+
+    if bdpt_bound:
+        log("BDPT bound: " + json.dumps(phase_bdpt_bound(dev)))
+        log("partial run (--bdpt-bound: phases 1-2 and the readings of "
+            "FWD_BDPT); no result line")
+        return 0
+    if walk:
+        wp = walk_phases(None)
+        for key in ("w1", "l2", "crossover", "default", "bdpt"):
+            log(f"{key}: " + json.dumps(wp[key]))
+        log("partial run (--walk: phases 1-2 and 21-24); no result line")
+        return 0
+    # phases 3-20 keep K1 on every path they drove before the walk was
+    # ported: their scenes (and the CLI's subprocesses) load with the brute
+    # backend; phases 21-24 take the card's own pick
+    os.environ["PRT_MESH_ACCEL"] = "brute"
     if paths:
         for phase, run in ((17, phase_sdf), (18, phase_media), (19, phase_env)):
             log(f"path: {json.dumps(run(dev, gpu_line))}")
@@ -4061,6 +4985,10 @@ def main(argv=None) -> int:
     done(19)
     g8 = phase_goldens_slice8(dev)
     done(20)
+    del os.environ["PRT_MESH_ACCEL"]
+    wp = walk_phases(regen_img)
+    w1_times, sweep_out, default, bdpt = (
+        wp["w1"], wp["crossover"], wp["default"], wp["bdpt"])
 
     cam = k1_times["camera"]
     k1_paths = {"forward 512^2 x 8 spp (regen)": launches["K1"],
@@ -4078,11 +5006,22 @@ def main(argv=None) -> int:
                 **{f"A {m} 512^2 x 8 spp": r["K1"]
                    for m, r in sdf["forward"].items()},
                 "A fwd+bwd 512^2 x 4 spp (regen_scan)": sdf["fwd_bwd"]["K1"],
-                **{f"B {k} 512^2 x 8 spp (regen)": r["forward"]["K1"]
+                **{f"B {k} 512^2 (regen)": r["forward"]["K1"]
                    for k, r in med.items() if k != "card_vs_cpu"},
-                **{f"B {k} fwd+bwd 512^2 x 4 spp (regen_scan)":
+                **{f"B {k} fwd+bwd 512^2 (regen_scan)":
                    r["fwd_bwd"]["K1"] for k, r in med.items()
-                   if "fwd_bwd" in r}}
+                   if "fwd_bwd" in r},
+                "BDPT cornell_hi 256^2 x 2 spp (brute)":
+                    bdpt["cornell_hi_brute"]["K1"]}
+    w1_paths = {"default forward 512^2 x 8 spp (regen)":
+                    default["forward"]["W1"],
+                "default fwd+bwd 512^2 x 4 spp (regen_scan)":
+                    default["fwd_bwd"]["W1"],
+                "traversal AOV 512^2": default["traversal"]["W1"],
+                "icosphere 327,680 triangles 512^2 x 2 spp (regen)":
+                    default["big_mesh"]["W1"],
+                "BDPT cornell_hi 512^2 x 8 spp": bdpt["cornell_hi"]["W1"]}
+    w1_cam = w1_times["camera"]
     k2_paths = {"forward 512^2 x 8 spp (regen)": launches["K2"],
                 "forward 512^2 x 8 spp (scan)": sw["scan"]["k2"],
                 "forward 512^2 x 8 spp (while)": sw["while"]["k2"],
@@ -4092,7 +5031,7 @@ def main(argv=None) -> int:
                     cli["aov"]["k2"],
                 **{f"A {m} 512^2 x 8 spp": r["K2"]
                    for m, r in sdf["forward"].items()},
-                **{f"B {k} 512^2 x 8 spp (regen)": r["forward"]["K2"]
+                **{f"B {k} 512^2 (regen)": r["forward"]["K2"]
                    for k, r in med.items() if k != "card_vs_cpu"},
                 f"C CLI -hdr {ENV_SIDE}^2 export (app.main)":
                     envp["cli"]["K2"]}
@@ -4162,6 +5101,39 @@ def main(argv=None) -> int:
          "by_block": t1["by_block"], "inner_loop_sass": t1["sass"],
          "timed_by": t1["timed_by"]},
     ]
+    kernels.append(
+        {"name": "W1 bvh_walk", "route": "cuda",
+         "source": f"{PKG}/csrc/bvh_walk.cu",
+         "replaces": "photorealistic_rendering_using_opencl_tpu/ops/intersect.py:293",
+         "replaces_note": "no TPU kernel: the reference's lax.while_loop "
+                          "walk (_bvh_traverse_chunk), which XLA keeps on the "
+                          "device",
+         "launches": sum(w1_paths.values()), "launches_by_path": w1_paths,
+         "max_abs_err": 0.0, "mismatches": sum(
+             v["mismatches"] for v in w1_times.values()),
+         "ms": w1_cam["ms"], "plain_ms": w1_cam["plain_ms"],
+         "bound_ms": w1_cam["bound"], "bound_by": w1_cam["by"],
+         "bound_term": w1_cam["bound_term"],
+         "bound_terms_ms": w1_cam["bound_terms_ms"],
+         "bound_note": "the largest of the tables once and the rays' bytes "
+                       "over HBM's 3.35 TB/s, every visit's, leaf's and "
+                       "ray's bytes over the L2 read rate this run's probe "
+                       "measured (l2_rate), the FP32 operations over 67 "
+                       "TFLOP/s",
+         "l2_rate": wp["l2"],
+         "library_ms": None,
+         "library_note": "no PyTorch call walks a BVH",
+         "timed_by": "ms: CUDA events around 10 back-to-back launches "
+                     "(phase 3's camera population, 524,288 lanes); "
+                     "plain_ms: host clock around one call of the twin, "
+                     "ending in torch.cuda.synchronize (it syncs at every "
+                     "node step)",
+         **{f"{key}_by_population": {k: v[field] for k, v in w1_times.items()}
+            for key, field in (("ms", "ms"), ("plain_ms", "plain_ms"),
+                               ("bound_ms", "bound"),
+                               ("visits_per_ray", "visits_per_ray"),
+                               ("leaf_visits_per_ray", "leaf_visits_per_ray"),
+                               ("tri_tests_per_ray", "tri_tests_per_ray"))}})
     for name, line in (("T2a", 57), ("T2b", 112)):
         k = t2[name]
         kernels.append(
@@ -4184,6 +5156,9 @@ def main(argv=None) -> int:
     log("path B (media): " + json.dumps(med))
     log("path C (env-lit thin lens): " + json.dumps(envp))
     log("slice goldens: " + json.dumps(g8))
+    log("crossover: " + json.dumps(sweep_out))
+    log("default path: " + json.dumps(default))
+    log("BDPT: " + json.dumps(bdpt))
     log(f"total {time.perf_counter() - t_start:.1f} s after the build")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu_line, flush=True)

@@ -4,12 +4,13 @@ Port of ``photorealistic_rendering_using_opencl_tpu/models/pathtracer.py``:
 ``pixel_grid``, ``camera_rays_for_sample``, ``render_sample``,
 ``_regen_carry0``, ``_regen_step`` (as the two halves below),
 ``trace_regen``, ``trace_regen_scan``, ``calibrate_regen_iters``,
-``render(method="scan" | "while" | "regen" | "regen_scan")``, the
+``render(method="scan" | "while" | "regen" | "regen_scan" | "bdpt")``, the
 progressive API (``ProgressiveState``, ``progressive_init`` / ``reset`` /
 ``step`` / ``image``) and the debug AOVs (``render_aov``).
 
 ``scan`` (the default, differentiable) and ``while`` (forward only) loop
-over the samples, each one ``integrator.trace`` of every pixel.  The
+over the samples, each one ``integrator.trace`` of every pixel; ``bdpt``
+loops the same way over ``bidirectional.trace`` (differentiable too).  The
 regeneration methods instead let each lane own one pixel and trace its
 samples back to back; a lane whose path dies starts its next sample in
 the same iteration, and one merged mesh dispatch per iteration carries
@@ -25,17 +26,16 @@ differentiable loop checkpoints each ``_regen_shade`` on its own, with
 the dispatch's result as the segment's boundary, so the backward pass
 recomputes the shading and never the traversal (the reference saves its
 named "hit" records for the same reason).
-
-BDPT is ROADMAP M13.
 """
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from photorealistic_rendering_using_opencl_tpu_torch.models import integrator
+from photorealistic_rendering_using_opencl_tpu_torch.models import bidirectional, integrator
 from photorealistic_rendering_using_opencl_tpu_torch.ops import camera_rays, intersect
 from photorealistic_rendering_using_opencl_tpu_torch.ops.math import RAY_INF
 from photorealistic_rendering_using_opencl_tpu_torch.ops.rng import MASK32, Sampler
@@ -46,7 +46,7 @@ from photorealistic_rendering_using_opencl_tpu_torch.utils.device import (
     DEFAULT_DEVICE, resolve_device,
 )
 
-_OTHER_METHODS = {"bdpt": "M13"}
+_SAMPLE_METHODS = ("scan", "while", "bdpt")
 
 
 def pixel_grid(width: int, height: int, device):
@@ -71,18 +71,32 @@ def render_sample(cfg: SceneConfig, scene: SceneData, cam_pytree,
                   width: int, height: int, sample_idx, seed=0,
                   rng_scheme: str = "pcg4d", jitter: bool = True,
                   method: str = "scan", bdpt_max_depth: int | None = None):
-    """One sample per pixel -> (radiance [N,3], alpha [N])."""
-    if method not in ("scan", "while"):
-        item = _OTHER_METHODS.get(method)
-        if item is None:
-            raise ValueError(f"render_sample: unknown method {method!r}")
-        raise NotImplementedError(
-            f"render_sample(method={method!r}) is ROADMAP {item}")
+    """One sample per pixel -> (radiance [N,3], alpha [N]).  ``method`` is
+    "scan", "while" or "bdpt"; BDPT traces ``bdpt_max_depth`` surface
+    vertices (default ``bidirectional.DEFAULT_DEPTH_CAP``) and warns when
+    that truncates the scene's ``max_bounces``."""
+    if method not in _SAMPLE_METHODS:
+        raise ValueError(f"render_sample: unknown method {method!r}")
     px, py = pixel_grid(width, height, scene.device)
     pixel_idx = py * width + px
     origin, direction = camera_rays_for_sample(
         cam_pytree, width, height, px, py, pixel_idx, sample_idx, seed,
         rng_scheme, jitter)
+    if method == "bdpt":
+        eff = (bidirectional.DEFAULT_DEPTH_CAP if bdpt_max_depth is None
+               else bdpt_max_depth)
+        if eff < cfg.max_bounces:
+            warnings.warn(
+                f"BDPT depth {eff} truncates the scene's max_bounces="
+                f"{cfg.max_bounces} path space (cost is quadratic in "
+                f"depth); pass bdpt_max_depth to go deeper",
+                stacklevel=2)
+        rad = bidirectional.trace(cfg, scene, origin, direction, pixel_idx,
+                                  sample_idx, seed=seed,
+                                  rng_scheme=rng_scheme,
+                                  max_depth=bdpt_max_depth)
+        return rad, torch.ones(rad.shape[:1], dtype=torch.float32,
+                               device=rad.device)
     return integrator.trace(cfg, scene, origin, direction, pixel_idx,
                             sample_idx, seed=seed, rng_scheme=rng_scheme,
                             method=method)
@@ -95,8 +109,10 @@ def render(cfg: SceneConfig, scene: SceneData, cam_pytree,
            bdpt_max_depth: int | None = None):
     """Full render -> (hdr [H,W,3], alpha [H,W]) on the scene's device.
 
-    ``method="scan"`` (differentiable) and ``method="while"`` (forward
-    only, early exit) trace all pixels one sample at a time;
+    ``method="scan"`` (differentiable), ``method="while"`` (forward
+    only, early exit) and ``method="bdpt"`` (bidirectional, differentiable,
+    ``bdpt_max_depth`` surface vertices) trace all pixels one sample at a
+    time;
     ``method="regen"`` renders without autograd (the reference's fastest
     forward method); ``method="regen_scan"`` is the differentiable
     regeneration loop and needs ``regen_iters`` (from
@@ -105,20 +121,16 @@ def render(cfg: SceneConfig, scene: SceneData, cam_pytree,
     (pixel, sample), so all four agree per pixel up to float summation
     order.  The signature is the reference's.
     """
-    if method not in ("scan", "while", "regen", "regen_scan"):
-        item = _OTHER_METHODS.get(method)
-        if item is None:
-            raise ValueError(f"unknown render method {method!r}")
-        raise NotImplementedError(
-            f"render(method={method!r}) is ROADMAP {item}; the port has "
-            "method='scan', 'while', 'regen' and 'regen_scan'")
-    if method in ("scan", "while"):
+    if method not in _SAMPLE_METHODS + ("regen", "regen_scan"):
+        raise ValueError(f"unknown render method {method!r}")
+    if method in _SAMPLE_METHODS:
         n = width * height
         acc = torch.zeros((n, 3), dtype=torch.float32, device=scene.device)
         aac = torch.zeros((n,), dtype=torch.float32, device=scene.device)
         for s in range(spp):
             rad, alpha = render_sample(cfg, scene, cam_pytree, width, height,
-                                       s, seed, rng_scheme, jitter, method)
+                                       s, seed, rng_scheme, jitter, method,
+                                       bdpt_max_depth)
             acc = acc + rad
             aac = aac + alpha
         return ((acc / spp).reshape(height, width, 3),

@@ -51,6 +51,9 @@ _SIGNATURES = {
     "prt_matmul_only": [_c_vp, _c_int, _c_vp, _c_vp, _c_ll, _c_int, _c_ll,
                         _c_int, _c_vp, _c_vp, _c_vp],
     "prt_passthrough": [_c_vp, _c_vp, _c_ll, _c_vp],
+    "prt_bvh_walk": [_c_vp, _c_vp, _c_vp, _c_int, _c_vp, _c_vp, _c_vp, _c_vp,
+                     _c_vp, _c_ll, _c_vp, _c_vp, _c_vp, _c_vp, _c_vp, _c_vp,
+                     _c_vp],
 }
 
 

@@ -1,9 +1,10 @@
 """Scene intersection for the render path: analytic spheres, SDFs, boxes
-and quads, and the triangle mesh through the brute backend
-(ops/mesh_brute.py).
+and quads, and the triangle mesh through either backend: the brute one
+(ops/mesh_brute.py, the kernel K1 on the card) or the skip-link BVH walk
+(``bvh_traverse``, the kernel W1 of ops/bvh_walk.py on the card).
 
-Port of ``photorealistic_rendering_using_opencl_tpu/ops/intersect.py``
-without the BVH walk (ROADMAP M12).  The whole ray batch is intersected
+Port of ``photorealistic_rendering_using_opencl_tpu/ops/intersect.py``.
+The whole ray batch is intersected
 against each primitive class with broadcasting ([rays x objects]); SDFs
 are sphere-traced by a masked loop over the batch; the mesh runs once per
 call on the merged closest-hit + shadow batch.  Selection is detached;
@@ -35,9 +36,9 @@ from typing import NamedTuple
 
 import torch
 
-from photorealistic_rendering_using_opencl_tpu_torch.ops import mesh_brute
+from photorealistic_rendering_using_opencl_tpu_torch.ops import bvh_walk, mesh_brute
 from photorealistic_rendering_using_opencl_tpu_torch.ops.math import (
-    EPS, RAY_INF, copysign, cross, fetch_float_rows, normalize,
+    EPS, RAY_INF, copysign, cross, fetch_float_rows, fma32, normalize,
 )
 from photorealistic_rendering_using_opencl_tpu_torch.scene.types import (
     BOX, DIEL, QUAD, ROUGH_DIEL, SceneConfig, SceneData, SDF, SDF_BOX,
@@ -55,19 +56,15 @@ class Hit(NamedTuple):
     pos: torch.Tensor  # [N,3]
     normal: torch.Tensor  # [N,3] (shading normal, backside-resolved)
     backside: torch.Tensor  # [N] bool
-    # winning triangle index in the brute tables' index space, -1 for
-    # analytic/miss; fed back as the next dispatch's self-exclusion
+    # winning triangle index in the index space of the backend that found
+    # it (brute: the bf_* tables; the walk: leaf-major, leaf_idx*4 + k),
+    # -1 for analytic/miss; fed back as the next dispatch's self-exclusion,
+    # which only the brute backend reads
     tri: torch.Tensor = None
 
     @property
     def valid(self):
         return self.t < RAY_INF
-
-
-def _check_ported(cfg: SceneConfig) -> None:
-    if cfg.has_mesh and cfg.mesh_accel != "brute":
-        raise NotImplementedError("the BVH walk (mesh_accel='bvh') is "
-                                  "ROADMAP M12")
 
 
 # ===========================================================================
@@ -289,6 +286,158 @@ def _tri_intersect(p0, p1, p2, origin, direction, t_best):
     return hit, t, u, v
 
 
+def _fma_cross(a, b):
+    """a x b with each component fma(a_i, b_j, -(a_j * b_i)): how XLA's CPU
+    backend compiles the reference's ``jnp.cross`` inside its walk."""
+    a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([fma32(a1, b2, -(a2 * b1)),
+                        fma32(a2, b0, -(a0 * b2)),
+                        fma32(a0, b1, -(a1 * b0))], dim=-1)
+
+
+def _fma_dot(a, b):
+    """fma(a2, b2, fma(a1, b1, a0 * b0)): XLA's CPU form of the reference's
+    ``jnp.sum(a * b, axis=-1)`` over three terms."""
+    return fma32(a[..., 2], b[..., 2],
+                 fma32(a[..., 1], b[..., 1], a[..., 0] * b[..., 0]))
+
+
+def _walk_tri_intersect(p0, p1, p2, origin, direction, t_best):
+    """The walk's triangle test, ``_tri_intersect`` with the reference's
+    crosses and dot products contracted as XLA's CPU backend contracts
+    them in its walk (``_fma_cross``, ``_fma_dot``; tests/test_torch_bvh.py
+    measures the pattern), so the walk is bitwise the reference's on the
+    CPU; W1 computes the same FMAs (csrc/bvh_walk.cu)."""
+    e1 = p0 - p1
+    e2 = p2 - p0
+    n = _fma_cross(e1, e2)
+    c = p0 - origin
+    r = _fma_cross(direction, c)
+    den = _fma_dot(n, direction)
+    inv_det = 1.0 / torch.where(torch.abs(den) < 1e-20, copysign(1e-20, den),
+                                den)
+    u = _fma_dot(r, e2) * inv_det
+    v = _fma_dot(r, e1) * inv_det
+    w = 1.0 - u - v
+    t = _fma_dot(n, c) * inv_det
+    hit = (u >= 0.0) & (v >= 0.0) & (w >= 0.0) & (t > EPS) & (t < t_best)
+    return hit, t, u, v
+
+
+# ===========================================================================
+# BVH traversal: the stackless skip-link walk
+# ===========================================================================
+
+LEAF_SIZE = 4  # triangles a leaf row holds (scene/bvh_build.py)
+
+
+def bvh_traverse(scene: SceneData, origin, direction, t_init, any_hit=False,
+                 active=None, count_steps: bool = False):
+    """Closest hit over the threaded BVH -> (t [N], tri [N] leaf-major,
+    -1 = none, u [N], v [N]), plus the node visits [N] int32 with
+    ``count_steps``.  Detached.  ``any_hit`` is a bool or a per-lane [N]
+    bool tensor: such a lane stops at its first hit.  Inactive lanes
+    return (t_init, -1, 0, 0) and visit no node.  CPU tensors run the plain
+    twin ``_bvh_traverse_chunk``; CUDA tensors launch W1 (ops/bvh_walk.py)
+    or raise."""
+    if origin.device.type == "cpu":
+        return _bvh_traverse_chunk(scene, origin, direction, t_init,
+                                   any_hit, active, count_steps)
+    return bvh_walk.walk(scene.bvh_nodes, scene.bvh_links, scene.leaf_verts,
+                         origin, direction, t_init, any_hit, active,
+                         count_steps)
+
+
+@torch.no_grad()
+def _bvh_traverse_chunk(scene: SceneData, origin, direction, t_init,
+                        any_hit=False, active=None, count_steps: bool = False):
+    """The walk's plain twin, the reference's ``_bvh_traverse_chunk`` op for
+    op: every lane advances one node a step (hit and inner: the octant's
+    hit link, else its miss link) until every lane has passed the last
+    node.  A step fetches the 32-byte node row and the octant's links,
+    slab-tests the box (entry clamped to EPS, exit to the lane's best t;
+    min/max propagate NaN, as jnp's do) and, at a leaf it enters, tests the
+    leaf's triangles in order, each against the best t so far
+    (``_walk_tri_intersect``).  A lane's result depends on that lane
+    alone, so lanes that are done leave the arrays and only the lanes that
+    enter a leaf fetch and test it (the reference tests every lane and
+    discards the rest): a step costs what those lanes need."""
+    origin, direction = origin.detach(), direction.detach()
+    nodes, links = scene.bvh_nodes.detach(), scene.bvh_links
+    leaves = scene.leaf_verts.detach()
+    dev = origin.device
+    n_nodes = nodes.shape[0]
+    n = origin.shape[0]
+    inv_d = 1.0 / torch.where(torch.abs(direction) < 1e-12,
+                              copysign(1e-12, direction), direction)
+    oct_ = ((direction[:, 0] < 0).to(torch.int64)
+            | ((direction[:, 1] < 0).to(torch.int64) << 1)
+            | ((direction[:, 2] < 0).to(torch.int64) << 2))
+    out_t = torch.broadcast_to(torch.as_tensor(
+        t_init, dtype=torch.float32, device=dev), (n,)).clone()
+    out_tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    out_u = torch.zeros((n,), dtype=torch.float32, device=dev)
+    out_v = torch.zeros((n,), dtype=torch.float32, device=dev)
+    out_steps = torch.zeros((n,), dtype=torch.int32, device=dev)
+    ah = torch.broadcast_to(torch.as_tensor(any_hit, dtype=torch.bool,
+                                            device=dev), (n,))
+    lane = torch.arange(n, device=dev)
+    if active is not None:
+        lane = lane[active.detach().to(torch.bool)]
+    o, d, idv, ah = origin[lane], direction[lane], inv_d[lane], ah[lane]
+    base = oct_[lane] * n_nodes
+    t, tri = out_t[lane], out_tri[lane]
+    u, v, steps = out_u[lane], out_v[lane], out_steps[lane]
+    node = torch.zeros(lane.shape, dtype=torch.int64, device=dev)
+    eps = torch.tensor(EPS, dtype=torch.float32, device=dev)
+    while lane.numel():
+        row = nodes[node]
+        meta = row[:, 7].contiguous().view(torch.int32)
+        lk = links[base + node]
+        t_lo = (row[:, 0:3] - o) * idv
+        t_hi = (row[:, 3:6] - o) * idv
+        entry = torch.maximum(torch.amax(torch.minimum(t_lo, t_hi), dim=-1),
+                              eps)
+        exit_ = torch.minimum(torch.amin(torch.maximum(t_lo, t_hi), dim=-1),
+                              t)
+        box_hit = entry <= exit_
+        count = meta & 7
+        leaf_idx = meta >> 3
+        at = torch.nonzero(box_hit & (count > 0)).squeeze(1)
+        if at.numel():
+            tv = leaves[leaf_idx[at].long()].reshape(-1, LEAF_SIZE, 3, 3)
+            ta, tria, ua, va = t[at], tri[at], u[at], v[at]
+            oa, da, ca, la = o[at], d[at], count[at], leaf_idx[at]
+            for k in range(LEAF_SIZE):
+                h, tk, uk, vk = _walk_tri_intersect(tv[:, k, 0], tv[:, k, 1],
+                                                    tv[:, k, 2], oa, da, ta)
+                take = (k < ca) & h
+                ta = torch.where(take, tk, ta)
+                tria = torch.where(take, la * LEAF_SIZE + k, tria)
+                ua = torch.where(take, uk, ua)
+                va = torch.where(take, vk, va)
+            t, tri = t.index_put((at,), ta), tri.index_put((at,), tria)
+            u, v = u.index_put((at,), ua), v.index_put((at,), va)
+        nxt = torch.where(box_hit & (count == 0), lk[:, 0], lk[:, 1]).long()
+        node = torch.where(ah & (tri >= 0), n_nodes, nxt)
+        steps = steps + 1
+        done = node >= n_nodes
+        if bool(done.any()):
+            fin = lane[done]
+            out_t[fin], out_tri[fin] = t[done], tri[done]
+            out_u[fin], out_v[fin] = u[done], v[done]
+            out_steps[fin] = steps[done]
+            keep = ~done
+            lane, node, base = lane[keep], node[keep], base[keep]
+            o, d, idv, ah = o[keep], d[keep], idv[keep], ah[keep]
+            t, tri, u, v, steps = (t[keep], tri[keep], u[keep], v[keep],
+                                   steps[keep])
+    if count_steps:
+        return out_t, out_tri, out_u, out_v, out_steps
+    return out_t, out_tri, out_u, out_v
+
+
 def tri_reattach(tri_verts, tri, origin, direction):
     """(t, u, v) for an already-selected triangle; the detached search's
     winner re-derived in exact f32 (and differentiable)."""
@@ -440,14 +589,24 @@ def ray_sort_key(origin, direction, clusters):
             | cell[:, 2])
 
 
+def mesh_tables(cfg: SceneConfig, scene: SceneData):
+    """(tri_verts, tri_normals) in the index space of ``cfg.mesh_accel``'s
+    winners."""
+    if cfg.mesh_accel == "bvh":
+        return scene.tri_verts, scene.tri_normals
+    return scene.bf_tri_verts, scene.bf_tri_normals
+
+
 def mesh_closest(cfg: SceneConfig, scene: SceneData, origin, direction,
                  t_init, any_hit=False, active=None, exclude_tri=None):
-    """Mesh intersection through the brute backend.
+    """Mesh intersection through ``cfg.mesh_accel``'s backend.
 
     Returns (t_detached [N], tri [N], tri_verts, tri_normals), tables in
     ``tri``'s index space; tri == -1 where nothing beats ``t_init``.
     ``exclude_tri`` ([N] int32, -1 = none) removes one triangle per lane
-    (self-exclusion for rays leaving a mesh surface).
+    (self-exclusion for rays leaving a mesh surface) in the brute backend,
+    whose den-multiplied tests need it; the walk ignores it, as the
+    reference's does (its t tests are exact f32), and is not validated.
 
     With ``cfg.mesh_sort_rays`` and rays for the kernel
     (``mesh_brute.uses_kernel``), the batch goes to K1 sorted by
@@ -461,7 +620,15 @@ def mesh_closest(cfg: SceneConfig, scene: SceneData, origin, direction,
     ported: it repairs the TPU kernel's reduced-precision matmul, which K1
     does not have.
     """
-    _check_ported(cfg)
+    if cfg.mesh_accel == "bvh":
+        tm, tri, _, _ = bvh_traverse(scene, origin, direction, t_init,
+                                     any_hit=any_hit, active=active)
+        return tm, tri, scene.tri_verts, scene.tri_normals
+    if cfg.n_triangles > mesh_brute.BRUTE_STREAM_MAX_TRIS:
+        # the loader packs no brute tables past K1's limit
+        raise ValueError(
+            f"{cfg.n_triangles} triangles: the brute backend carries at most "
+            f"{mesh_brute.BRUTE_STREAM_MAX_TRIS}; use mesh_accel='bvh'")
     origin_k, direction_k, t_init_k = origin, direction, t_init
     active_k, any_hit_k, exclude_k = active, any_hit, exclude_tri
     perm = None
@@ -503,7 +670,6 @@ def _closest_analytic(cfg: SceneConfig, scene: SceneData, origin, direction,
     """Closest hit over the analytic classes, detached -> (t, mesh_id,
     normal).  Every class keeps only a strictly closer hit; the SDF march
     starts with the spheres' t as its limit."""
-    _check_ported(cfg)
     origin = origin.detach()
     direction = direction.detach()
     n = origin.shape[0]
@@ -609,7 +775,6 @@ def _shadow_analytic(cfg: SceneConfig, scene: SceneData, origin, direction,
                      max_dist, active=None, early_exit: bool = True):
     """Analytic occlusion tests -> (blocked [N] bool, limit [N]); SDFs
     march with the shadow budget."""
-    _check_ported(cfg)
     n = origin.shape[0]
     limit = max_dist * (1.0 - 1e-3)
     blocked = torch.zeros((n,), dtype=torch.bool, device=origin.device)
@@ -722,8 +887,7 @@ def finish_hit(cfg: SceneConfig, scene: SceneData, origin, direction,
         return _finish_hit(cfg, scene, origin, direction, rec.t, rec.mesh_id,
                            rec.normal)
     return _finish_hit(cfg, scene, origin, direction, rec.t, rec.mesh_id,
-                       rec.normal, rec.tri, scene.bf_tri_verts,
-                       scene.bf_tri_normals)
+                       rec.normal, rec.tri, *mesh_tables(cfg, scene))
 
 
 def intersect_scene(cfg: SceneConfig, scene: SceneData, origin, direction,
@@ -748,16 +912,15 @@ def intersect_and_shadow(cfg: SceneConfig, scene: SceneData, origin,
 @torch.no_grad()
 def traversal_cost(cfg: SceneConfig, scene: SceneData, origin, direction):
     """Per-ray traversal work estimate for the debug AOV (the reference's
-    VIEW_STACK_INDEX heatmap) -> [N] int32: the number of tiles the ray
-    enters (``mesh_brute.ray_cluster_count``), 0 without a mesh.  The bvh
-    backend's node-visit count needs the BVH walk, ROADMAP M12."""
+    VIEW_STACK_INDEX heatmap) -> [N] int32: for the brute backend the
+    number of tiles the ray enters (``mesh_brute.ray_cluster_count``), for
+    the walk its node visits; 0 without a mesh."""
     n = origin.shape[0]
     if not cfg.has_mesh:
         return torch.zeros((n,), dtype=torch.int32, device=origin.device)
-    if cfg.mesh_accel != "brute":
-        raise NotImplementedError("traversal_cost for mesh_accel="
-                                  f"{cfg.mesh_accel!r} needs the BVH walk, "
-                                  "ROADMAP M12")
+    if cfg.mesh_accel == "bvh":
+        return bvh_traverse(scene, origin, direction, RAY_INF,
+                            count_steps=True)[4]
     return mesh_brute.ray_cluster_count(scene.bf_clusters, origin, direction,
                                         RAY_INF)
 

@@ -38,6 +38,23 @@ def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                         a0 * b1 - a1 * b0], dim=-1)
 
 
+def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c rounded once to float32, as a fused multiply-add gives it,
+    on any device.  The product is exact in float64; the sum is rounded to
+    float64 by round-to-odd (the rounding error, exact by Knuth's two-sum,
+    moves an inexact sum with an even last bit to its odd neighbour), and
+    an odd-rounded float64 rounds to the correctly rounded float32."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(torch.float64)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
 def normalize(a: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return a * torch.reciprocal(torch.sqrt(torch.clamp(dot3(a, a), min=eps)))
 

@@ -40,8 +40,8 @@ FEAT = 16  # ray feature width (10 used)
 # the reference's resident-table cap; above it the loader asks for the ray
 # sort (scene/loader.py: mesh_sort_rays)
 BRUTE_MAX_TRIS = 32768
-# the brute backend carries meshes up to this size; beyond it the
-# reference switches to the BVH walk, which is ROADMAP M12
+# the brute backend carries meshes up to this size; beyond it the loader
+# packs only the BVH walk's tables (scene/loader.py)
 BRUTE_STREAM_MAX_TRIS = 262144
 
 

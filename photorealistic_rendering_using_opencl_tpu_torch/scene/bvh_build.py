@@ -1,11 +1,14 @@
 """Host SAH BVH build (numpy) -> threaded flat arrays.
 
 Port of ``photorealistic_rendering_using_opencl_tpu/scene/bvh_build.py``
-(``build_bvh``, ``build_bvh_py``, ``permute_triangles``).  The slice uses the
-build for its triangle ``order`` only: the brute tables are packed in BVH
-order so that consecutive 128-triangle tiles are spatially compact.  The
-device layout of the walk (``pack_for_device``, ``thread_octants``) waits
-for ROADMAP M12.
+(``build_bvh``, ``build_bvh_py``, ``permute_triangles``, ``pack_for_device``,
+``thread_octants``).  The build serves both mesh backends: the brute tables
+are packed in BVH order so that consecutive 128-triangle tiles are
+spatially compact, and ``pack_for_device`` lays the tree out for the
+skip-link walk (ops/intersect.py: ``bvh_traverse``; ops/bvh_walk.py).
+Its arrays are bitwise the reference's for the same ``FlatBVH``; the
+reference's per-leaf copy and per-node DFS are vectorised here (a
+327,680-triangle mesh has ~160,000 nodes, eight threadings of them).
 
 The native build and ``build_bvh_py`` are both sweep-SAH builds but do
 NOT give the same ``order`` on every mesh (they differ on the
@@ -142,3 +145,114 @@ def permute_triangles(tri_verts: np.ndarray, tri_normals: np.ndarray,
     padn = np.zeros((pad, 3, 3), np.float32)
     return (np.concatenate([v, padv], axis=0),
             np.concatenate([n, padn], axis=0))
+
+
+def _subtree_end(prim_count: np.ndarray) -> np.ndarray:
+    """[M] int64: node i's subtree is [i, end[i]) in preorder."""
+    m = prim_count.shape[0]
+    leaf = (prim_count > 0).tolist()
+    end = [0] * m
+    for i in range(m - 1, -1, -1):
+        end[i] = i + 1 if leaf[i] else end[end[i + 1]]
+    return np.asarray(end, np.int64)
+
+
+def pack_for_device(bvh: FlatBVH, tri_verts: np.ndarray,
+                    tri_normals: np.ndarray):
+    """Device layout of the walk -> (nodes [M,8] f32, leaf_verts
+    [L, LEAF_SIZE*9] f32, tri_verts_lm [L*LEAF_SIZE,3,3], tri_normals_lm
+    [L*LEAF_SIZE,3,3], links [8M,2] int32).
+
+    * ``nodes`` row: bmin(0:3) | bmax(3:6) | bitcast(miss) | bitcast(meta)
+      with meta = (leaf_idx << 3) | count for leaves, 0 for inner nodes: a
+      step's node fetch is one 32-byte row.
+    * triangles are leaf-major, every leaf padded to LEAF_SIZE slots
+      (degenerate zero triangles never hit), so a leaf's candidates are
+      one 144-byte ``leaf_verts`` row; a hit's index is
+      leaf_idx * LEAF_SIZE + k into the ``_lm`` tables.
+    """
+    m = bvh.miss.shape[0]
+    is_leaf = bvh.prim_count > 0
+    leaf_ids = np.cumsum(is_leaf) - 1  # preorder leaf numbering
+    n_leaves = int(is_leaf.sum())
+
+    meta = np.where(is_leaf,
+                    (leaf_ids.astype(np.int64) << 3)
+                    | bvh.prim_count.astype(np.int64),
+                    0).astype(np.int32)
+    nodes = np.zeros((m, 8), np.float32)
+    nodes[:, 0:3] = bvh.bounds_min
+    nodes[:, 3:6] = bvh.bounds_max
+    nodes[:, 6] = bvh.miss.view(np.float32)
+    nodes[:, 7] = meta.view(np.float32)
+
+    v_sorted = tri_verts[bvh.order].astype(np.float32)
+    n_sorted = tri_normals[bvh.order].astype(np.float32)
+    lm_v = np.zeros((n_leaves, LEAF_SIZE, 3, 3), np.float32)
+    lm_n = np.zeros((n_leaves, LEAF_SIZE, 3, 3), np.float32)
+    leaf_nodes = np.nonzero(is_leaf)[0]
+    slot = np.arange(LEAF_SIZE)
+    first = bvh.first_prim[leaf_nodes].astype(np.int64)
+    used = slot[None, :] < bvh.prim_count[leaf_nodes][:, None]
+    src = (first[:, None] + slot[None, :])[used]
+    lm_v[used] = v_sorted[src]
+    lm_n[used] = n_sorted[src]
+    leaf_verts = lm_v.reshape(n_leaves, LEAF_SIZE * 9)
+    links = thread_octants(bvh)
+    return (nodes, leaf_verts,
+            lm_v.reshape(n_leaves * LEAF_SIZE, 3, 3),
+            lm_n.reshape(n_leaves * LEAF_SIZE, 3, 3),
+            links)
+
+
+def thread_octants(bvh: FlatBVH) -> np.ndarray:
+    """Per-ray-octant hit/miss threading -> links [8*M, 2] int32.
+
+    The reference's stack walk visits the near child first; a skip-link
+    walk cannot reorder on the fly, so the near-first DFS is threaded once
+    for each of the 8 direction octants: ray r uses rows [oct(r)*M,
+    (oct(r)+1)*M).  hit = the next node when the box is hit (the near
+    child), miss = the skip target; a leaf has hit == miss.  The near
+    child: along the axis that separates the children's centres most (the
+    first on ties), the one with the smaller centre, or the larger for a
+    ray going down that axis.  The links follow parent to child, so they
+    are filled one tree level at a time, the 8 octants together.
+    """
+    m = bvh.miss.shape[0]
+    is_leaf = bvh.prim_count > 0
+    centers = (bvh.bounds_min + bvh.bounds_max) * 0.5
+    end = _subtree_end(bvh.prim_count)
+
+    inner = np.nonzero(~is_leaf)[0]
+    left = inner + 1
+    right = end[left]
+    sep = np.abs(centers[left] - centers[right])
+    axis = np.argmax(sep, axis=1)
+    left_le = centers[left, axis] <= centers[right, axis]
+
+    # depth of every node: parents come before their children in preorder
+    depth = [0] * m
+    for i, lc, rc in zip(inner.tolist(), left.tolist(), right.tolist()):
+        depth[lc] = depth[rc] = depth[i] + 1
+    # inner nodes grouped by depth, one slice a level
+    inner_depth = np.asarray(depth, np.int64)[inner]
+    by_depth = np.argsort(inner_depth, kind="stable")
+    levels = np.split(by_depth,
+                      np.flatnonzero(np.diff(inner_depth[by_depth])) + 1)
+
+    links = np.empty((8, m, 2), np.int32)
+    for oct_ in range(8):
+        sign = np.array([oct_ & 1, (oct_ >> 1) & 1, (oct_ >> 2) & 1], bool)
+        left_near = left_le ^ sign[axis]
+        near = np.where(left_near, left, right)
+        far = np.where(left_near, right, left)
+        miss = np.empty(m, np.int64)
+        miss[0] = m
+        for k in levels:
+            miss[near[k]] = far[k]
+            miss[far[k]] = miss[inner[k]]
+        hit = miss.copy()
+        hit[inner] = near
+        links[oct_, :, 0] = hit
+        links[oct_, :, 1] = miss
+    return links.reshape(8 * m, 2)

@@ -1,17 +1,17 @@
 """JSON scene loader -> (SceneConfig, SceneData) on the card by default.
 
-Port of ``photorealistic_rendering_using_opencl_tpu/scene/loader.py`` with
-the brute mesh backend only: spheres, SDFs, boxes and quads in canonical
-order, the OBJ mesh, the global medium (sigmas premultiplied by density),
-the phase function and an environment map with its sampling tables.  The
-leaves are built in numpy exactly as the reference builds them and copied
-to ``device`` at the end: the CUDA card unless the caller passes
-``device="cpu"`` (without a card, the default raises; it never falls back
-to the CPU).  The environment map's CDF tables are built on ``device``
-from the map (``ops/envmap.build_env_distribution``).
-
-Meshes over 262,144 triangles need the BVH walk (ROADMAP M12) and are
-refused with ``NotImplementedError``.
+Port of ``photorealistic_rendering_using_opencl_tpu/scene/loader.py``:
+spheres, SDFs, boxes and quads in canonical order, the OBJ mesh with the
+tables of both mesh backends (the brute coefficient table and the BVH
+walk's nodes, links and leaf-major triangles), the global medium (sigmas
+premultiplied by density), the phase function and an environment map with
+its sampling tables.  The leaves are built in numpy exactly as the
+reference builds them and copied to ``device`` at the end: the CUDA card
+unless the caller passes ``device="cpu"`` (without a card, the default
+raises; it never falls back to the CPU).  The environment map's CDF
+tables are built on ``device`` from the map
+(``ops/envmap.build_env_distribution``).  ``_pick_mesh_accel`` chooses
+the mesh backend for ``device``.
 """
 from __future__ import annotations
 
@@ -34,6 +34,30 @@ from photorealistic_rendering_using_opencl_tpu_torch.scene.types import (
 from photorealistic_rendering_using_opencl_tpu_torch.utils.device import (
     DEFAULT_DEVICE, resolve_device,
 )
+
+# the reference's CPU rule (its scene/loader.py:_pick_mesh_accel)
+CPU_BRUTE_MAX_TRIS = 2048
+
+
+def _pick_mesh_accel(n_tris: int, device: torch.device) -> str:
+    """The mesh backend for a mesh of ``n_tris`` triangles on ``device``.
+
+    On the CPU the reference's own rule: brute up to CPU_BRUTE_MAX_TRIS,
+    the walk above, so a scene both packages load on the CPU gets the same
+    backend.  On the card the walk W1 for every mesh: chip_smoke.py's
+    phase 22 timed the whole ``mesh_closest`` call of each backend on an
+    H100 (PERF.md, "Backend rule": icospheres of 320 to 327,680 triangles,
+    a frame's camera rays and a regen dispatch's merged batch), and the
+    walk was 7-18x faster than brute's ray sort, K1 and validation at
+    every size brute carries, 320 triangles included.
+    ``PRT_MESH_ACCEL=brute|bvh`` overrides both."""
+    forced = os.environ.get("PRT_MESH_ACCEL", "")
+    if forced in ("brute", "bvh"):
+        return forced
+    if device.type == "cuda":
+        return "bvh"
+    return "brute" if n_tris <= CPU_BRUTE_MAX_TRIS else "bvh"
+
 
 _DEFAULT_MODEL_DIRS = (
     "resources/models",
@@ -129,7 +153,7 @@ def build_scene(doc: dict, models_dir: str | None = None,
     n_obj = len(spheres) + len(sdfs) + len(boxes) + len(quads)
     nk = max(n_obj, 1)
 
-    # ---------------- OBJ mesh -> brute tables ----------------
+    # ---------------- OBJ mesh -> both backends' tables ----------------
     obj_doc = scene_doc.get("obj")
     tri_v = tri_n = None
     obj_mat = _Mat()
@@ -145,20 +169,19 @@ def build_scene(doc: dict, models_dir: str | None = None,
 
     n_tris = 0
     n_nodes = 0
-    brute = None
+    brute = packed = None
     if tri_v is not None:
         tri_v = np.asarray(tri_v)
         tri_n = np.asarray(tri_n)
-        if tri_v.shape[0] > mesh_brute.BRUTE_STREAM_MAX_TRIS:
-            raise NotImplementedError(
-                f"{tri_v.shape[0]} triangles: meshes over "
-                f"{mesh_brute.BRUTE_STREAM_MAX_TRIS} need the BVH walk "
-                "(ROADMAP M12)")
         bvh = bvh_build.build_bvh(tri_v)
         n_tris = int(bvh.order.shape[0])
         n_nodes = int(bvh.miss.shape[0])
-        # BVH triangle order makes consecutive tiles spatially compact
-        brute = mesh_brute.pack_brute(tri_v[bvh.order], tri_n[bvh.order])
+        packed = bvh_build.pack_for_device(bvh, tri_v, tri_n)
+        # K1 streams at most BRUTE_STREAM_MAX_TRIS: past that only the walk
+        # carries the mesh, and its brute tables stay empty.  BVH triangle
+        # order makes consecutive tiles spatially compact
+        if n_tris <= mesh_brute.BRUTE_STREAM_MAX_TRIS:
+            brute = mesh_brute.pack_brute(tri_v[bvh.order], tri_n[bvh.order])
 
     color = np.ones((nk, 3), np.float32)
     eta = np.tile(np.asarray(AU_ETA, np.float32), (nk, 1))
@@ -275,12 +298,11 @@ def build_scene(doc: dict, models_dir: str | None = None,
         active_mats=int(active_mats),
         alpha_testing=alpha_testing,
         has_env_map=env_map is not None,
-        mesh_accel="brute",
+        mesh_accel=_pick_mesh_accel(n_tris, device),
         # the reference's rule: sort rays for K1 above BRUTE_MAX_TRIS
-        # triangles.  Keyed on the padded count (ROADMAP F3); the threshold
-        # is a multiple of TILE, so the unpadded count gives the same answer
-        mesh_sort_rays=(brute is not None and brute.tri_verts.shape[0]
-                        > mesh_brute.BRUTE_MAX_TRIS),
+        # triangles, a multiple of TILE, so the padded count K1 sees gives
+        # the same answer (ROADMAP F3)
+        mesh_sort_rays=n_tris > mesh_brute.BRUTE_MAX_TRIS,
     )
 
     # the reference clamps every ray at RAY_INF (a 20-unit world): warn when
@@ -304,7 +326,11 @@ def build_scene(doc: dict, models_dir: str | None = None,
     if brute is not None:
         leaves.update(
             bf_feat=brute.feat, bf_clusters=brute.clusters,
-            bf_tri_verts=brute.tri_verts, bf_tri_normals=brute.tri_normals,
+            bf_tri_verts=brute.tri_verts, bf_tri_normals=brute.tri_normals)
+    if packed is not None:
+        leaves.update(
+            bvh_nodes=packed[0], leaf_verts=packed[1], tri_verts=packed[2],
+            tri_normals=packed[3], bvh_links=packed[4],
             obj_color=np.asarray(obj_mat.color, np.float32),
             obj_eta=np.asarray(obj_mat.eta, np.float32),
             obj_k=np.asarray(obj_mat.k, np.float32),

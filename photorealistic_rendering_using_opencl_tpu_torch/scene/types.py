@@ -138,13 +138,14 @@ class SceneConfig:
 
     # mesh intersection backend: "brute" = exhaustive tile-pruned testing
     # (ops/mesh_brute.py; the CUDA kernel K1 on the card), "bvh" = the
-    # skip-link walk, which the port does not have yet (ROADMAP M12).
+    # skip-link walk (ops/intersect.py: bvh_traverse; the CUDA kernel W1,
+    # ops/bvh_walk.py, on the card).  The loader picks by size and device.
     mesh_accel: str = "brute"
 
     # Sort the merged batch before K1 so that a warp's rays need the same
     # tiles (ops/intersect.py: ray_sort_key), result-invariant; only where
     # the kernel runs (``mesh_brute.uses_kernel``), as the reference sorts
-    # only for its TPU kernel.  The loader sets it above BRUTE_MAX_TRIS
+    # only for its TPU kernel; a brute-only setting (the walk ignores it).  The loader sets it above BRUTE_MAX_TRIS
     # triangles, as the reference's does.
     mesh_sort_rays: bool = False
     # Kept for field parity with the reference and IGNORED by the port: a
@@ -178,10 +179,10 @@ class SceneData:
     Objects are stored in canonical order [spheres | sdfs | boxes | quads];
     the OBJ mesh has its own material slot (``obj_*``); the medium's
     sigmas, the HG anisotropy and the environment map (1x1 black when
-    absent) with its sampling tables are differentiable leaves too.  The BVH-walk
-    leaves (``tri_verts``, ``tri_normals``, ``bvh_nodes``, ``bvh_links``,
-    ``leaf_verts``) are placeholders in scenes the port loads itself: the
-    walk is ROADMAP M12.  The brute tables ``bf_*`` carry the mesh.
+    absent) with its sampling tables are differentiable leaves too.  A mesh
+    carries the tables of both backends: the BVH walk's (``tri_verts``,
+    ``tri_normals`` leaf-major, ``bvh_nodes``, ``bvh_links``,
+    ``leaf_verts``) and the brute ones (``bf_*``).
     """
 
     color: torch.Tensor  # [N,3]
@@ -203,11 +204,11 @@ class SceneData:
 
     light_indices: torch.Tensor  # [n_lights] int32
 
-    tri_verts: torch.Tensor
-    tri_normals: torch.Tensor
-    bvh_nodes: torch.Tensor
-    bvh_links: torch.Tensor
-    leaf_verts: torch.Tensor
+    tri_verts: torch.Tensor  # [4L,3,3] leaf-major, each leaf padded to 4
+    tri_normals: torch.Tensor  # [4L,3,3]
+    bvh_nodes: torch.Tensor  # [M,8] bmin|bmax|bitcast(miss)|bitcast(meta)
+    bvh_links: torch.Tensor  # [8M,2] int32 per-octant (hit, miss) links
+    leaf_verts: torch.Tensor  # [L,36] a leaf's four triangles in one row
     bf_feat: torch.Tensor  # [16, 4*Tpad] Moller-Trumbore coefficient table
     bf_clusters: torch.Tensor  # [NT,8] per-tile AABBs
     bf_tri_verts: torch.Tensor  # [Tpad,3,3] triangles in bf index order

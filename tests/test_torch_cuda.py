@@ -16,7 +16,9 @@ import pytest
 import torch
 
 from photorealistic_rendering_using_opencl_tpu_torch.models import pathtracer
-from photorealistic_rendering_using_opencl_tpu_torch.ops import compaction, mesh_brute, passthrough
+from photorealistic_rendering_using_opencl_tpu_torch.ops import (
+    bvh_walk, compaction, intersect, mesh_brute, passthrough,
+)
 from photorealistic_rendering_using_opencl_tpu_torch.ops.intersect import ray_sort_key
 from photorealistic_rendering_using_opencl_tpu_torch.ops import tonemap as tm
 from photorealistic_rendering_using_opencl_tpu_torch.ops.camera_rays import default_camera
@@ -32,10 +34,14 @@ N = 600  # not a multiple of the kernel's 128-ray block
 
 
 @pytest.fixture
-def cuda():
+def cuda(monkeypatch):
+    """The card.  Scenes load with the brute backend (K1) unless a test
+    asks for the walk (W1): the card's own pick for a mesh is the walk
+    above a size (scene/loader.py), and these tests hold K1."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the kernels are CUDA only")
     torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setenv("PRT_MESH_ACCEL", "brute")
     return torch.device("cuda")
 
 
@@ -944,3 +950,144 @@ def test_env_map_gradient_on_card_matches_cpu(cuda):
                                          em)[0].cpu())
     assert float(grads[0].abs().max()) > 0
     torch.testing.assert_close(grads[1], grads[0], rtol=1e-4, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# W1, the BVH walk, and BDPT
+# ---------------------------------------------------------------------------
+
+def _walk_scene(dev, subdiv=4):
+    cfg, sc = load_scene(os.path.join(REPO, "scenes/cornell.json"),
+                         mesh_override=make_icosphere(subdiv, 1.2,
+                                                      (0.0, -0.8, 0.0)),
+                         device=dev)
+    return dataclasses.replace(cfg, mesh_accel="bvh"), sc
+
+
+def _walk_rays(pop, dev, n=4099):
+    """A population's rays with any-hit lanes, inactive lanes and capped
+    t_init mixed in; zero and axis-parallel directions among the random."""
+    r = np.random.default_rng(("random", "camera", "surface").index(pop) + 40)
+    d = r.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    if pop == "random":
+        o = r.uniform(-2.5, 2.5, (n, 3)).astype(np.float32)
+        d[:6] = 0.0
+        d[0, 0], d[1, 1], d[2, 2], d[3, 0] = 1.0, -1.0, -0.0, -1e-13
+    elif pop == "camera":
+        o = np.tile(np.array([0.0, 4 * np.sin(0.3), 4 * np.cos(0.3)],
+                             np.float32), (n, 1))
+        d = r.uniform(-1.2, 1.2, (n, 3)).astype(np.float32) - o
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+    else:
+        tv = make_icosphere(4, 1.2, (0.0, -0.8, 0.0))[0]
+        tri = r.integers(0, tv.shape[0], n)
+        uv = r.uniform(0, 1, (n, 2)).astype(np.float32)
+        uv[uv.sum(1) > 1] = 1 - uv[uv.sum(1) > 1]
+        v = tv[tri]
+        o = (v[:, 0] * (1 - uv[:, 0:1] - uv[:, 1:2]) + v[:, 1] * uv[:, 0:1]
+             + v[:, 2] * uv[:, 1:2]).astype(np.float32)
+    t_init = np.where(np.arange(n) % 5 == 0, 0.7, RAY_INF).astype(np.float32)
+    anyh = np.arange(n) % 3 == 1
+    act = np.arange(n) % 11 != 0
+    return [torch.from_numpy(x).to(dev) for x in (o, d, t_init, act, anyh)]
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pop", ["random", "camera", "surface"])
+def test_w1_matches_twin(cuda, pop):
+    """W1's t, tri, u, v and node visits bitwise the twin's, on the card and
+    on the CPU; one launch; the counters add up the visits."""
+    _, sc = _walk_scene(cuda)
+    o, d, t_init, act, anyh = _walk_rays(pop, cuda)
+    counters = torch.zeros(bvh_walk.W1_COUNTERS, dtype=torch.int64,
+                           device=cuda)
+    before = bvh_walk.bvh_walk_kernel.launches
+    got = bvh_walk.bvh_walk_kernel(sc.bvh_nodes, sc.bvh_links, sc.leaf_verts,
+                                   o, d, t_init, act, anyh, count_steps=True,
+                                   counters=counters)
+    assert bvh_walk.bvh_walk_kernel.launches == before + 1
+    on_card = intersect._bvh_traverse_chunk(sc, o, d, t_init, anyh, act,
+                                            count_steps=True)
+    on_cpu = intersect._bvh_traverse_chunk(sc.to("cpu"), o.cpu(), d.cpu(),
+                                           t_init.cpu(), anyh.cpu(), act.cpu(),
+                                           count_steps=True)
+    for name, g, c, h in zip(("t", "tri", "u", "v", "steps"), got, on_card,
+                             on_cpu):
+        assert torch.equal(_bits(g), _bits(c)), name
+        assert torch.equal(_bits(g).cpu(), _bits(h)), name
+    assert int(counters[0]) == int(got[4].sum()) > 0
+    assert int(counters[2]) >= int(counters[1]) > 0
+    assert (got[1] >= 0).sum() > 100
+
+
+@pytest.mark.cuda
+def test_w1_wrapper_validates_arguments(cuda):
+    _, sc = _walk_scene(cuda, subdiv=2)
+    o, d, t_init, act, anyh = _walk_rays("random", cuda, n=64)
+    args = [sc.bvh_nodes, sc.bvh_links, sc.leaf_verts, o, d, t_init, act, anyh]
+    for i, bad in ((3, o.double()), (5, t_init[:10]), (1, sc.bvh_links.float()),
+                   (3, o.cpu())):
+        with pytest.raises((TypeError, ValueError)):
+            bvh_walk.bvh_walk_kernel(*args[:i], bad, *args[i + 1:])
+    with pytest.raises(ValueError):
+        bvh_walk.walk(sc.bvh_nodes.cpu(), sc.bvh_links.cpu(),
+                      sc.leaf_verts.cpu(), o.cpu(), d.cpu(), t_init.cpu())
+
+
+@pytest.mark.cuda
+def test_walk_render_on_card_matches_cpu(cuda):
+    """The regen frame of cornell.json + 5,120 triangles through W1 on the
+    card and the twin on the CPU at 4 bounces: every pixel within 1e-5;
+    W1 once a dispatch; the brute frame on the card bitwise the walk's."""
+    imgs = {}
+    for dev in (cuda, torch.device("cpu")):
+        cfg, sc = _walk_scene(dev)
+        cfg = dataclasses.replace(cfg, max_bounces=4)
+        before = bvh_walk.bvh_walk_kernel.launches
+        with torch.no_grad():
+            imgs[dev.type], _ = pathtracer.render(
+                cfg, sc, default_camera(32, 32).pytree(dev), 32, 32, 2,
+                seed=3, method="regen")
+        if dev.type == "cuda":
+            assert bvh_walk.bvh_walk_kernel.launches > before
+            with torch.no_grad():
+                brute, _ = pathtracer.render(
+                    dataclasses.replace(cfg, mesh_accel="brute"), sc,
+                    default_camera(32, 32).pytree(dev), 32, 32, 2, seed=3,
+                    method="regen")
+            assert torch.equal(brute, imgs["cuda"])
+    torch.testing.assert_close(imgs["cuda"].cpu(), imgs["cpu"], rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accel", ["brute", "bvh"])
+def test_bdpt_on_card_matches_cpu(cuda, accel):
+    """BDPT at depth 3 on cornell.json + a 320-triangle icosphere by either
+    mesh backend, on the card and the CPU with every decision recorded
+    (chip_smoke.bdpt_card_vs_cpu): a pixel whose decisions differ is left
+    out (an ulp of a ray flips a grazing one: at most 1% of them), every
+    other pixel within chip_smoke.FWD_BDPT (a connection's 1/d^2 magnifies
+    an ulp); the mesh kernel launched 3 + 2 + 1 times a sample."""
+    cs = _chip_smoke()
+    mesh = make_icosphere(subdiv=2, radius=0.6, center=(0.0, 1.0, 0.0))
+    launched = {}
+
+    def build(dev):
+        cfg, sc = load_scene(os.path.join(REPO, "scenes/cornell.json"),
+                             mesh_override=mesh, device=dev)
+        launched[dev.type] = (mesh_brute.mesh_brute_kernel.launches,
+                              bvh_walk.bvh_walk_kernel.launches)
+        return (dataclasses.replace(cfg, mesh_accel=accel), sc,
+                default_camera(24, 24).pytree(dev))
+
+    r = cs.bdpt_card_vs_cpu(cuda, build, 24, 2, 7, 3)
+    k1, w1 = launched["cpu"]  # counts when the CPU leg began
+    k1_0, w1_0 = launched["cuda"]
+    assert (k1 - k1_0 if accel == "brute" else w1 - w1_0) == 2 * (4 + 2 + 1)
+    assert r["unexplained"] == 0

@@ -10,8 +10,8 @@ itself: its own un-jitted render of the same config misses the golden
 there, as XLA's fusion rounds differently from op-by-op execution.  So a
 pixel of the port may miss the golden only where the reference's
 un-jitted render misses it too; every other pixel must meet the bound.
-(cornell_hi_bvh stays card-only: K1's twin is too slow for 81,920
-triangles on the CPU.)
+cornell_hi_bvh (81,920 triangles) loads with the walk on the CPU, as the
+reference's does, and renders through the walk's twin.
 
 sdf_demo's normals are central differences at 2e-5, which magnify an ulp
 of the camera ray; the two packages' camera rays differ in last bits, so
@@ -47,6 +47,7 @@ GOLDENS = {
     "multi_light_pick": ("scenes/multilight_pick.json", 8, {}),
     "alpha_test": ("scenes/cornell_simple.json", 8, {"alpha_testing": True}),
     "coat_grazing": ("scenes/coat_grazing.json", 8, {}),
+    "cornell_hi_bvh": ("scenes/cornell_hi.json", 2, {}),
     "materials": ("scenes/materials.json", 4, {}),
     "sdf_demo": ("scenes/sdf_demo.json", 4, {}),
     "cornell_media": ("scenes/cornell_media.json", 4, {}),

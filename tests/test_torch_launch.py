@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from photorealistic_rendering_using_opencl_tpu_torch.ops import (
-    _cuda, compaction, mesh_brute, passthrough,
+    _cuda, bvh_walk, compaction, mesh_brute, passthrough,
 )
 from photorealistic_rendering_using_opencl_tpu_torch.ops import tonemap as tm
 
@@ -75,6 +75,15 @@ def _t1():
     return mesh_brute.matmul_only_kernel, args, "prt_matmul_only"
 
 
+def _w1():
+    n, m = 40, 3
+    z = torch.zeros
+    args = (z((m, 8)), z((8 * m, 2), dtype=torch.int32), z((2, 36)),
+            z((n, 3)), z((n, 3)), z((n,)), torch.ones(n, dtype=torch.bool),
+            z(n, dtype=torch.bool), True)
+    return bvh_walk.bvh_walk_kernel, args, "prt_bvh_walk"
+
+
 WRAPPERS = {
     "K1": _k1,
     "K2": lambda: (tm.tonemap_kernel, (torch.zeros((5, 7, 3)), True, 1.0),
@@ -87,6 +96,7 @@ WRAPPERS = {
                     "prt_passthrough"),
     "T2b": lambda: (passthrough.passthrough_flat_kernel,
                     (torch.zeros(256),), "prt_passthrough"),
+    "W1": _w1,
 }
 
 

@@ -90,10 +90,16 @@ def test_library_recipe_writes_png(tmp_path):
 
 @pytest.mark.parametrize("method, item", [("bdpt", "M13")])
 def test_unported_methods_raise(method, item):
+    """A method that raised until ROADMAP ``item`` was ported now renders
+    (tests/test_torch_bdpt.py holds it to the reference), and an unknown
+    method still raises.  (The name is the refusal test's.)"""
     cfg, sc = load_scene("scenes/cornell_simple.json", device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        pathtracer.render(cfg, sc, default_camera(8, 8).pytree("cpu"), 8, 8, 1,
-                          method=method)
+    cam = default_camera(8, 8).pytree("cpu")
+    img, alpha = pathtracer.render(cfg, sc, cam, 8, 8, 1, method=method)
+    assert img.shape == (8, 8, 3) and torch.isfinite(img).all()
+    assert img.mean() > 0 and torch.equal(alpha, torch.ones_like(alpha))
+    with pytest.raises(ValueError):
+        pathtracer.render(cfg, sc, cam, 8, 8, 1, method=method + "_x")
 
 
 def test_regen_scan_needs_regen_iters():

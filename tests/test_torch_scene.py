@@ -33,8 +33,9 @@ torch.set_num_threads(2)
 
 # every SceneData leaf the port's render path reads but the environment
 # map's sampling tables, which the port builds itself (held to a tolerance
-# in tests/test_torch_envmap.py); the BVH-walk leaves wait for ROADMAP M12
+# in tests/test_torch_envmap.py); the BVH walk's since ROADMAP M12
 SLICE_LEAVES = (
+    "tri_verts", "tri_normals", "bvh_nodes", "bvh_links", "leaf_verts",
     "color", "eta", "k", "roughness", "mat_type", "lobes", "dist",
     "position", "params", "geom_type", "quad_base", "quad_edge0",
     "quad_edge1", "quad_normal", "quad_area", "light_indices",
@@ -163,9 +164,10 @@ def test_unported_features_raise(doc_patch, item):
 def test_medium_and_big_mesh_raise():
     """A global medium (sigmas premultiplied by density, its type, the
     absorption-only flag), which the port refused until M11, loads as the
-    JAX package loads it; an unknown medium type and a mesh past the brute
-    backend's limit (ROADMAP M12) raise.  (The name is the refusal
-    test's.)"""
+    JAX package loads it, and an unknown medium type raises; a mesh past
+    the brute backend's limit, refused until ROADMAP M12, loads with the
+    walk's tables (the brute ones stay empty: K1 cannot stream it).  (The
+    name is the refusal test's.)"""
     with open("scenes/cornell_simple.json") as fh:
         doc = json.load(fh)
     for medium in ({"density": 0.1},
@@ -182,10 +184,14 @@ def test_medium_and_big_mesh_raise():
     with pytest.raises(ValueError):
         loader.build_scene(dict(doc, global_medium={"type": "fog"}),
                            device="cpu")
-    big = (np.zeros((262145, 3, 3), np.float32),
-           np.zeros((262145, 3, 3), np.float32))
-    with pytest.raises(NotImplementedError, match="M12"):
-        loader.build_scene(doc, mesh_override=big, device="cpu")
+    r = np.random.default_rng(9)
+    tv = (r.uniform(-1.5, 1.5, (262145, 1, 3))
+          + r.normal(size=(262145, 3, 3)) * 0.01).astype(np.float32)
+    cfg, sc = loader.build_scene(doc, mesh_override=(tv, tv), device="cpu")
+    assert cfg.n_triangles == 262145 and cfg.mesh_accel == "bvh"
+    assert sc.tri_verts.shape[0] == 4 * sc.leaf_verts.shape[0] >= 262145
+    assert sc.bvh_links.shape == (8 * cfg.n_bvh_nodes, 2)
+    assert sc.bf_tri_verts.shape[0] < 262145
 
 
 def _horizon_warnings(tmp_path, spheres):
