@@ -140,8 +140,14 @@ drove before the walk was ported; phases 21-24 take the card's own pick.
      populations (merged closest + any-hit batches of 524,288 lanes with
      inactive lanes and capped t_init) and the render population (the
      regen forward's RENDER_CALL-th merged batch through the walk): 0
-     mismatches in t, tri, u, v and node visits; W1's time by CUDA events
-     over 10 launches, its bound from its work counters, node visits a ray.
+     mismatches in t, tri, u, v and node visits, W1's visit, leaf and test
+     counters the twin's; W1's time by CUDA events over 10 launches and by
+     event pairs behind a sleep, warm and L2-flushed (event_ms), its bound
+     from its work counters, node visits a ray, the SIMT efficiency of its
+     node loop and leaf branch (w1_simt), its registers; the same checks
+     on the edge batches of w1_edge_batches; the refill sweep (a build of
+     bvh_walk.cu for each threshold of W1_REFILL_SWEEP, timed on the four
+     populations).
  22. The backend crossover: the whole mesh_closest call by each backend
      (brute: the ray sort, K1 and the winner's validation; bvh: W1) on
      icospheres of 320 to 327,680 triangles as cornell.json's mesh, for a
@@ -212,10 +218,12 @@ in the card's leg: the readings FWD_BDPT sits between; no result line.
     python3 chip_smoke.py --kernel-times [--port-root DIR]
 
 runs phases 1-2 and only the times of K2, K3, T2a and T2b (phases 4, 7
-and 11, warm and L2-flushed) and of T1 (phase 10's, with its inner loop's
-SASS) on the port in DIR (a checkout of another commit; this one's by
-default), as one JSON line; no result line.  Two commits compare in one
-call: run it for each, in turns.
+and 11, warm and L2-flushed), of W1 (phase 21's populations, warm and
+L2-flushed, W1_TURN_REPEATS readings each, with a digest of its outputs'
+bits) and of T1 (phase 10's, with its inner loop's SASS) on the port in
+DIR (a checkout of another commit; this one's by default), as one JSON
+line; no result line.  Two commits compare in one call: run it for each,
+in turns.
 """
 from __future__ import annotations
 
@@ -826,41 +834,54 @@ def k1_sort_cost(closest, reps=10):
     return out
 
 
-def k1_variants(configs):
-    """csrc/mesh_brute.cu built once for each configuration, through its
-    PRT_K1_* macros, into a directory of this process under _build/ (one
-    nvcc a build, as many at once as there are cores) -> {configuration:
-    (its prt_mesh_brute, registers a thread)}."""
+def nvcc_variants(source, entry, configs, tag):
+    """csrc/``source`` built once for each configuration (a key -> its
+    -D flags) into a directory of this process under _build/ (one nvcc a
+    build, as many at once as there are cores) -> {key: (its ``entry``
+    with the kernel library's argtypes, the build's ptxas log)}."""
     import ctypes
-    import re
     from photorealistic_rendering_using_opencl_tpu_torch.ops import _cuda
-    out_dir = os.path.join(_cuda.BUILD_DIR, f"k1_sweep.{os.getpid()}")
+    out_dir = os.path.join(_cuda.BUILD_DIR, f"{tag}.{os.getpid()}")
     os.makedirs(out_dir, exist_ok=True)
-    src = os.path.join(_cuda.CSRC_DIR, "mesh_brute.cu")
+    src = os.path.join(_cuda.CSRC_DIR, source)
     todo, running, built = list(configs), [], {}
     t0 = time.perf_counter()
     while todo or running:
         while todo and len(running) < (os.cpu_count() or 4):
-            b, p, u = cfg = todo.pop(0)
-            so = os.path.join(out_dir, f"k1_{b}_{p}_{u}.so")
+            key = todo.pop(0)
+            so = os.path.join(out_dir, f"{tag}_{len(built) + len(running)}.so")
             cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-shared",
-                   f"-DPRT_K1_BLOCK_RAYS={b}", f"-DPRT_K1_PER_THREAD_FROM={p}",
-                   f"-DPRT_K1_PASS={u}", "-o", so, src]
-            running.append((cfg, so, subprocess.Popen(
+                   *configs[key], "-o", so, src]
+            running.append((key, so, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
-        cfg, so, proc = running.pop(0)
+        key, so, proc = running.pop(0)
         out, _ = proc.communicate(timeout=600)
         if proc.returncode != 0:
-            fail(f"K1 sweep: nvcc failed for {cfg}:\n{out}")
-        fn = ctypes.CDLL(so).prt_mesh_brute
-        fn.argtypes = _cuda._SIGNATURES["prt_mesh_brute"]
+            fail(f"{tag}: nvcc failed for {key}:\n{out}")
+        fn = getattr(ctypes.CDLL(so), entry)
+        fn.argtypes = _cuda._SIGNATURES[entry]
         fn.restype = ctypes.c_int
-        regs = re.findall(r"Used (\d+) registers", out)
-        built[cfg] = (fn, int(regs[0]) if regs else -1)
-    log(f"  K1 sweep: {len(built)} builds of mesh_brute.cu, "
+        built[key] = (fn, out)
+    log(f"  {tag}: {len(built)} builds of {source}, "
         f"{time.perf_counter() - t0:.1f} s")
     return built
+
+
+def k1_variants(configs):
+    """csrc/mesh_brute.cu built once for each configuration, through its
+    PRT_K1_* macros (nvcc_variants) -> {configuration: (its
+    prt_mesh_brute, registers a thread)}."""
+    built = nvcc_variants(
+        "mesh_brute.cu", "prt_mesh_brute",
+        {(b, p, u): [f"-DPRT_K1_BLOCK_RAYS={b}",
+                     f"-DPRT_K1_PER_THREAD_FROM={p}", f"-DPRT_K1_PASS={u}"]
+         for b, p, u in configs}, "k1_sweep")
+    out = {}
+    for cfg, (fn, text) in built.items():
+        regs = re.findall(r"Used (\d+) registers", text)
+        out[cfg] = (fn, int(regs[0]) if regs else -1)
+    return out
 
 
 def k1_sweep(feat, clusters, pops, reps=5):
@@ -3976,6 +3997,26 @@ W1_TRI_FLOPS = 61
 # entered, its 144-byte row; a ray, its origin, direction, t_init and two
 # flags, and writes t, tri, u and v
 W1_VISIT_BYTES, W1_LEAF_BYTES, W1_RAY_BYTES = 40, 144, 46
+# W1's CTA size (csrc/bvh_walk.cu THREADS) and a warp's lanes, for the
+# occupancy and SIMT readings
+W1_THREADS, W1_WARP = 128, 32
+# W1's event timings (event_ms): launches a reading, and the sleep
+# (~10 ms at the H100's clock) that keeps the card busy while the host
+# queues them
+W1_EVENT_REPS = 20
+EVENT_SLEEP_CYCLES = 20_000_000
+# --kernel-times: readings of each population, warm and flushed, a port
+W1_TURN_REPEATS = 3
+# phase 21's refill sweep: thresholds of idle lanes at which a warp
+# refills, each a build of csrc/bvh_walk.cu (PRT_W1_REFILL)
+W1_REFILL_SWEEP = (1, 2, 4, 8, 12, 16, 20, 24, 28, 32)
+# the render path's instance of W1 (no counters) in ptxas's log
+W1_RENDER_INSTANCE = "bvh_walk_kernelILb0"
+# phase 21's edge batches: fewer rays than the lanes of one wave of CTAs
+# (one CTA of 128 on each of the H100's 132 SMs is 16,896), and a batch
+# past 2^21
+W1_UNDER_WAVE = 5000
+W1_HUGE = 2_000_003
 # W1's bound has three terms, the largest of which it is: the bytes only
 # device memory can give (the walk's tables once, the rays' own bytes) at
 # HBM_BYTES_PER_S; every byte a visit, a leaf and a ray move, which the
@@ -4119,48 +4160,170 @@ def w1_bound(scene, b, counters, l2) -> dict:
                 else "bytes", term=top, terms_ms=terms)
 
 
-def w1_compare(name, scene, b, problems, l2):
-    """One batch through W1 (node visits and work counters on) and the
-    twin on the card: 0 mismatches in t, tri, u, v and visits; W1's time
-    by CUDA events over 10 launches of the render path's form, the twin's
-    by the host clock (it syncs at every node step; under the profiler its
-    ~10^5 launches take minutes), and W1's bound from this batch's
-    counters (w1_bound)."""
+def ptxas_usage(build_log, function) -> dict:
+    """``function``'s registers a thread and spill bytes from an nvcc
+    ``-Xptxas=-v`` log ({} when the log holds no such entry), with the
+    warps an SM holds at W1_THREADS a CTA by those registers (an SM's
+    65,536 registers, allocated 256 a warp at a time; at most 64 warps)."""
+    lines = build_log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" not in line or function not in line:
+            continue
+        out = {}
+        for nxt in lines[i + 1:i + 6]:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", nxt)
+            if m:
+                out["spill_stores"], out["spill_loads"] = int(m[1]), int(m[2])
+            m = re.search(r"Used (\d+) registers", nxt)
+            if m:
+                regs = out["registers"] = int(m[1])
+                warp_regs = -(-regs * 32 // 256) * 256
+                warps = W1_THREADS // 32
+                ctas = 65536 // (warp_regs * warps)
+                out["warps_per_sm"] = min(64, ctas * warps)
+                break
+        return out
+    return {}
+
+
+def event_ms(fn, reps: int, flush=None) -> dict:
+    """Device milliseconds of one call of ``fn()``: a CUDA event pair
+    around each of ``reps`` calls (each after ``flush()``, where given),
+    all queued behind a ``torch.cuda._sleep`` of EVENT_SLEEP_CYCLES, so
+    that the card never waits for the host's enqueue between them ->
+    {"ms": mean, "min", "max"}.  One warm-up call first."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(EVENT_SLEEP_CYCLES)
+    for start, end in pairs:
+        if flush:
+            flush()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    ms = [start.elapsed_time(end) for start, end in pairs]
+    return dict(ms=sum(ms) / reps, min=min(ms), max=max(ms))
+
+
+def warp_lockstep_steps(steps) -> int:
+    """Sum over warps (W1_WARP consecutive lanes) of the warp's longest
+    walk: the node steps a warp of one-thread-a-ray lanes issues."""
+    import torch
+    s = steps.to(torch.int64)
+    pad = (-s.numel()) % W1_WARP
+    if pad:
+        s = torch.cat([s, s.new_zeros(pad)])
+    return int(s.view(-1, W1_WARP).amax(dim=1).sum())
+
+
+def w1_simt(got_steps, counters) -> dict:
+    """SIMT efficiencies of W1's node loop and leaf branch on one launch:
+    visits over W1_WARP x the warp node steps, and leaves entered over
+    W1_WARP x the warp steps in which a lane entered a leaf.  "lockstep":
+    the warp steps of W1_WARP consecutive lanes that each walk one ray
+    (from the node visits a lane); "issued": the kernel's own counters of
+    the warp steps it ran."""
+    visits, leaves, _, wsteps, wleaf = counters
+    lock = warp_lockstep_steps(got_steps)
+    return dict(node_lockstep=visits / max(W1_WARP * lock, 1),
+                node_issued=visits / max(W1_WARP * wsteps, 1),
+                leaf_issued=leaves / max(W1_WARP * wleaf, 1),
+                warp_steps_lockstep=lock, warp_steps_issued=wsteps,
+                warp_leaf_steps_issued=wleaf)
+
+
+def w1_check(name, scene, groups, problems):
+    """W1 on ``groups``, a list of (batches, stream): each group's batches
+    launched back to back (node visits and work counters on; on its
+    stream where it names one, else the current one); then the twin once,
+    on the card, over every batch of every group laid end to end (a lane's
+    walk is its own: tests/test_torch_bvh.py holds the twin to that), so
+    that its host syncs a node step are paid once.  0 mismatches in t,
+    tri, u, v and visits per batch, and W1's visit, leaf and test counters
+    summed over the batches equal to the twin's counts -> [(W1's outputs,
+    its counters as ints, mismatches)] a batch, and the twin's host-clock
+    ms."""
+    import contextlib
+
     import torch
     from photorealistic_rendering_using_opencl_tpu_torch.ops import bvh_walk, intersect
     nodes, links, leaves = scene.bvh_nodes, scene.bvh_links, scene.leaf_verts
-    args = (b["origin"], b["direction"], b["t_init"], b["active"],
-            b["any_hit"])
-    counters = torch.zeros(bvh_walk.W1_COUNTERS, dtype=torch.int64,
-                           device=scene.device)
-    got = bvh_walk.bvh_walk_kernel(nodes, links, leaves, *args,
-                                   count_steps=True, counters=counters)
+    batches, runs = [], []
+    for group, stream in groups:
+        with torch.cuda.stream(stream) if stream else contextlib.nullcontext():
+            for b in group:
+                counters = torch.zeros(bvh_walk.W1_COUNTERS,
+                                       dtype=torch.int64, device=scene.device)
+                runs.append((bvh_walk.bvh_walk_kernel(
+                    nodes, links, leaves, b["origin"], b["direction"],
+                    b["t_init"], b["active"], b["any_hit"], count_steps=True,
+                    counters=counters), counters))
+                batches.append(b)
     torch.cuda.synchronize()
+    twin_counters = torch.zeros(3, dtype=torch.int64, device=scene.device)
+    cat = {k: torch.cat([b[k] for b in batches])
+           for k in ("origin", "direction", "t_init", "any_hit", "active")}
     t0 = time.perf_counter()
     want = intersect._bvh_traverse_chunk(
-        scene, b["origin"], b["direction"], b["t_init"], b["any_hit"],
-        b["active"], count_steps=True)
+        scene, cat["origin"], cat["direction"], cat["t_init"],
+        cat["any_hit"], cat["active"], count_steps=True,
+        counters=twin_counters)
     torch.cuda.synchronize()
     twin_ms = (time.perf_counter() - t0) * 1e3
-    bad = {k: int((x.view(torch.int32) != y.view(torch.int32)).sum())
-           if x.dtype == torch.float32 else int((x != y).sum())
-           for k, x, y in zip(("t", "tri", "u", "v", "steps"), got, want)}
-    if any(bad.values()):
-        problems.append(f"W1 {name}: mismatches against the twin {bad}")
+    sizes = [b["origin"].shape[0] for b in batches]
+    want = [torch.split(x, sizes) for x in want]
+    out, total = [], [0, 0, 0]
+    for i, (got, counters) in enumerate(runs):
+        bad = {k: int((x.view(torch.int32) != y[i].view(torch.int32)).sum())
+               if x.dtype == torch.float32 else int((x != y[i]).sum())
+               for k, x, y in zip(("t", "tri", "u", "v", "steps"), got, want)}
+        if any(bad.values()):
+            problems.append(f"W1 {name} batch {i}: mismatches against the "
+                            f"twin {bad}")
+        cnt = [int(x) for x in counters.tolist()]
+        total = [a + b for a, b in zip(total, cnt)]
+        out.append((got, cnt, bad))
+    twin_cnt = [int(x) for x in twin_counters.tolist()]
+    if total != twin_cnt:
+        out[-1][2]["counters"] = 1
+        problems.append(f"W1 {name}: counters {total} (visits, leaves, "
+                        f"tests), the twin's {twin_cnt}")
+    return out, twin_ms
+
+
+def w1_compare(name, scene, b, problems, l2, flush=None):
+    """One batch through W1 and the twin on the card (w1_check); W1's time
+    by CUDA events over 10 launches of the render path's form, by event
+    pairs behind a sleep (event_ms), warm and after an L2 flush, the
+    twin's by the host clock (it syncs at every node step; under the
+    profiler its ~10^5 launches take minutes), the SIMT efficiencies
+    (w1_simt) and W1's bound from this batch's counters (w1_bound)."""
+    from photorealistic_rendering_using_opencl_tpu_torch.ops import bvh_walk
+    nodes, links, leaves = scene.bvh_nodes, scene.bvh_links, scene.leaf_verts
+    args = (b["origin"], b["direction"], b["t_init"], b["active"],
+            b["any_hit"])
+    [(got, cnt, bad)], twin_ms = w1_check(name, scene, [([b], None)],
+                                          problems)
 
     def launch():
         bvh_walk.bvh_walk_kernel(nodes, links, leaves, *args)
 
     ms = cuda_ms(launch, 10)
+    ev = event_ms(launch, W1_EVENT_REPS)
+    fl = event_ms(launch, W1_EVENT_REPS, flush) if flush else None
     n = b["origin"].shape[0]
-    visits, leaf_visits, tests = (int(x) for x in counters.tolist())
-    if visits != int(got[4].sum()):
-        problems.append(f"W1 {name}: counters {visits} visits, steps "
-                        f"{int(got[4].sum())}")
+    visits, leaf_visits, tests = cnt[:3]
+    simt = w1_simt(got[4], cnt)
     wb = w1_bound(scene, b, (visits, leaf_visits, tests), l2)
     bound, by = wb["bound"], wb["by"]
     active = max(int(b["active"].sum()), 1)
-    out = dict(n=n, ms=ms, plain_ms=twin_ms, bound=bound, by=by,
+    out = dict(n=n, ms=ms, events_ms=ev, flushed_ms=fl, simt=simt,
+               plain_ms=twin_ms, bound=bound, by=by,
                bound_term=wb["term"], bound_terms_ms=wb["terms_ms"],
                visits_per_ray=visits / active,
                leaf_visits_per_ray=leaf_visits / active,
@@ -4176,7 +4339,154 @@ def w1_compare(name, scene, b, problems, l2):
         f"{out['tri_tests_per_ray']:.2f} triangle tests an active ray (worst "
         f"lane {out['max_visits']} visits); {out['hits']} hits; mismatches "
         f"{bad}")
+    log(f"    events behind a sleep: {ev['ms']:.4f} ms ({ev['min']:.4f}-"
+        f"{ev['max']:.4f})" + (f", L2 flushed {fl['ms']:.4f} ms "
+                               f"({fl['min']:.4f}-{fl['max']:.4f})"
+                               if fl else "")
+        + f"; SIMT node loop {simt['node_lockstep']:.3f} lockstep, "
+        f"{simt['node_issued']:.3f} issued; leaf branch "
+        f"{simt['leaf_issued']:.3f} issued ({simt['warp_steps_issued']} "
+        f"warp steps, {simt['warp_leaf_steps_issued']} with a leaf)")
     return out, got
+
+
+def w1_design() -> dict:
+    """W1's refill threshold and rays a lane, as csrc/bvh_walk.cu sets
+    them."""
+    from photorealistic_rendering_using_opencl_tpu_torch.ops import _cuda
+    with open(os.path.join(_cuda.CSRC_DIR, "bvh_walk.cu")) as fh:
+        src = fh.read()
+    return dict(
+        refill_threshold=int(re.search(r"#define PRT_W1_REFILL (\d+)",
+                                       src)[1]),
+        block_rays_a_lane=int(re.search(r"BLOCK_RAYS = (\d+);", src)[1]))
+
+
+def w1_edge_batches(scene, dev) -> dict:
+    """W1's edge batches on ``scene``'s walk tables (phase 21: cornell_hi):
+    {name: (the batches launched back to back, whether on a side stream)}.
+    Rays start in the mesh's box at 1.5x its half size, 10% inactive, half
+    of them any-hit, a fifth of t_init capped; the sizes 1, 31, 33, fewer
+    rays than the lanes of one wave (W1_UNDER_WAVE), W1_HUGE; 90%
+    inactive; a mix of any-hit lanes, NaN origins, directions and t_init,
+    an infinite t_init and rays from the mesh's centre (inside it); two
+    launches of other sizes back to back; a launch on a stream that is not
+    the default."""
+    import torch
+    root = scene.bvh_nodes[0].cpu().numpy()
+    mid, half = (root[0:3] + root[3:6]) / 2, (root[3:6] - root[0:3]) / 2
+    rng = np.random.default_rng(2026)
+
+    def batch(n, inactive=0.1):
+        o = (mid + rng.uniform(-1.5, 1.5, (n, 3)) * half).astype(np.float32)
+        d = rng.normal(size=(n, 3)).astype(np.float32)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        t_init = np.where(rng.uniform(size=n) < 0.2,
+                          rng.uniform(0.05, 3.0, n), 20.0).astype(np.float32)
+        any_hit = rng.uniform(size=n) < 0.5
+        active = rng.uniform(size=n) >= inactive
+        if n <= 33:
+            active[:] = True
+            o[0] = mid  # from inside the mesh
+        return dict(o=o, d=d, t_init=t_init, any_hit=any_hit, active=active)
+
+    def mixed(n=65536):
+        b = batch(n)
+        i = np.arange(n)
+        b["any_hit"] = i % 3 == 1
+        b["o"][i % 8 == 2] = mid  # inside the icosphere
+        b["o"][i % 64 == 5, 0] = np.nan
+        b["d"][i % 64 == 9, 1] = np.nan
+        b["d"][i % 64 == 13] = np.inf
+        b["t_init"][i % 64 == 17] = np.nan
+        b["t_init"][i % 64 == 21] = np.inf
+        b["t_init"][i % 64 == 25] = 0.0
+        return b
+
+    def dev_batch(b):
+        return dict(origin=torch.from_numpy(b["o"]).to(dev),
+                    direction=torch.from_numpy(b["d"]).to(dev),
+                    t_init=torch.from_numpy(b["t_init"]).to(dev),
+                    any_hit=torch.from_numpy(b["any_hit"]).to(dev),
+                    active=torch.from_numpy(b["active"]).to(dev))
+
+    cases = {"n=1": ([batch(1)], False), "n=31": ([batch(31)], False),
+             "n=33": ([batch(33)], False),
+             f"n={W1_UNDER_WAVE} (under one wave)": ([batch(W1_UNDER_WAVE)],
+                                                    False),
+             f"n={W1_HUGE}": ([batch(W1_HUGE)], False),
+             "90% inactive": ([batch(2 * RAYS, inactive=0.9)], False),
+             "any-hit, NaN, inf, inside": ([mixed()], False),
+             "back to back 100,003 then 37": ([batch(100003), batch(37)],
+                                              False),
+             "side stream": ([batch(65536)], True)}
+    return {k: ([dev_batch(b) for b in bs], side)
+            for k, (bs, side) in cases.items()}
+
+
+def w1_edges(scene, dev, problems) -> dict:
+    """W1 against the twin on w1_edge_batches (w1_check, one twin call for
+    them all): mismatches a case."""
+    import torch
+    cases = w1_edge_batches(scene, dev)
+    runs, twin_ms = w1_check("edges", scene, [
+        (batches, torch.cuda.Stream(dev) if side else None)
+        for batches, side in cases.values()], problems)
+    out = {}
+    for name, (batches, _) in cases.items():
+        mine, runs = runs[:len(batches)], runs[len(batches):]
+        out[name] = dict(n=[b["origin"].shape[0] for b in batches],
+                         mismatches=sum(sum(r[2].values()) for r in mine),
+                         hits=[int((r[0][1] >= 0).sum()) for r in mine])
+        log(f"  W1 edge {name}: N={out[name]['n']}, hits {out[name]['hits']}, "
+            f"mismatches {out[name]['mismatches']}")
+    log(f"  W1 edges: the twin on all of them at once, {twin_ms:.1f} ms")
+    return out
+
+
+def w1_refill_sweep(scene, pops, reps=W1_EVENT_REPS) -> dict:
+    """csrc/bvh_walk.cu built for each threshold of W1_REFILL_SWEEP (its
+    PRT_W1_REFILL macro), the render path's instance (no counters) timed by
+    event_ms on ``pops``, warm, each one's t, tri, u, v held bitwise against
+    the kernel library's -> {threshold: {"registers", population: ms}}."""
+    import torch
+    from photorealistic_rendering_using_opencl_tpu_torch.ops import bvh_walk
+    built = nvcc_variants("bvh_walk.cu", "prt_bvh_walk",
+                          {r: [f"-DPRT_W1_REFILL={r}"]
+                           for r in W1_REFILL_SWEEP}, "w1_sweep")
+    nodes, links, leaves = scene.bvh_nodes, scene.bvh_links, scene.leaf_verts
+    table, wrong = {}, []
+    for r, (fn, text) in built.items():
+        table[r] = {"registers": ptxas_usage(text, W1_RENDER_INSTANCE)}
+        for name, b in pops.items():
+            n = b["origin"].shape[0]
+            want = bvh_walk.bvh_walk_kernel(
+                nodes, links, leaves, b["origin"], b["direction"],
+                b["t_init"], b["active"], b["any_hit"])
+            got = [torch.empty_like(x) for x in want]
+
+            def launch(fn=fn, b=b, n=n, got=got):
+                code = fn(nodes.data_ptr(), links.data_ptr(),
+                          leaves.data_ptr(), nodes.shape[0],
+                          b["origin"].data_ptr(), b["direction"].data_ptr(),
+                          b["t_init"].data_ptr(), b["active"].data_ptr(),
+                          b["any_hit"].data_ptr(), n,
+                          *(x.data_ptr() for x in got), None, None,
+                          torch.cuda.current_stream().cuda_stream)
+                if code:
+                    fail(f"W1 sweep: REFILL {r} returned CUDA error {code}")
+            launch()
+            if not all(same_bits(g, w) for g, w in zip(got, want)):
+                wrong.append((r, name))
+            table[r][name] = event_ms(launch, reps)["ms"]
+    log("  W1 refill sweep (event_ms, warm, ms a launch; registers): "
+        + " | ".join(pops))
+    for r, row in table.items():
+        log(f"    REFILL {r:2d} {row['registers'].get('registers')}: "
+            + " ".join(f"{row[k]:.4f}" for k in pops))
+    if wrong:
+        fail(f"W1 sweep: thresholds whose outputs differ {wrong}")
+    return table
 
 
 def regen_dispatch(cfg, scene, w, spp, call):
@@ -4242,12 +4552,20 @@ def phase_walk(dev):
     log(f"  L2 probe: a warm {L2_PROBE_BYTES >> 20} MB buffer read "
         f"{L2_PROBE_PASSES} times in {l2['probe_ms']:.4f} ms: "
         f"{l2['rate']:.4g} B/s")
+    from photorealistic_rendering_using_opencl_tpu_torch.ops import _cuda
+    usage = {inst: ptxas_usage(_cuda.LIBRARY.build_log,
+                               f"bvh_walk_kernelILb{i}")
+             for i, inst in enumerate(("render", "counting"))}
+    log(f"  W1's build, each instance: {usage}")
+    flush = l2_flush(dev)
     problems, times = [], {}
     for name, b in pops.items():
-        times[name], _ = w1_compare(name, scene, b, problems, l2)
+        times[name], _ = w1_compare(name, scene, b, problems, l2, flush)
+    edges = w1_edges(scene, dev, problems)
     if problems:
         fail("; ".join(problems))
-    return times, l2
+    sweep = w1_refill_sweep(scene, pops)
+    return times, dict(l2=l2, ptxas=usage, edges=edges, refill_sweep=sweep)
 
 
 def phase_crossover(dev, gpu_line):
@@ -4807,16 +5125,55 @@ def phase_k1_sweep(dev, pops):
              f"kernel library's: {wrong[:6]}")
 
 
+def w1_turn_times(cfg, scene, dev, flush, repeats=W1_TURN_REPEATS):
+    """--kernel-times' W1: phase 21's four populations through the
+    wrapper's signature that W1's first design already had (so that an
+    older port times the same way), each read ``repeats`` times warm and with
+    the L2 flushed (event_ms over W1_EVENT_REPS launches), and a digest of
+    the outputs' bits (t, tri, u, v), equal across ports that agree
+    bitwise."""
+    import dataclasses
+
+    import torch
+    from photorealistic_rendering_using_opencl_tpu_torch.ops import bvh_walk
+    pops = k1_populations(scene, dev)
+    pops["render"] = regen_dispatch(
+        dataclasses.replace(cfg, mesh_accel="bvh"), scene, FRAME, 8,
+        RENDER_CALL)
+    out = {}
+    for name, b in pops.items():
+        def launch(b=b):
+            return bvh_walk.bvh_walk_kernel(
+                scene.bvh_nodes, scene.bvh_links, scene.leaf_verts,
+                b["origin"], b["direction"], b["t_init"], b["active"],
+                b["any_hit"])
+        digest = sum(int((x.view(torch.int32).to(torch.int64)
+                          * torch.arange(1, x.numel() + 1, device=dev)).sum())
+                     for x in launch())
+        r = out[name] = dict(
+            warm=[event_ms(launch, W1_EVENT_REPS)["ms"]
+                  for _ in range(repeats)],
+            flushed=[event_ms(launch, W1_EVENT_REPS, flush)["ms"]
+                     for _ in range(repeats)],
+            digest=digest)
+        log(f"  W1 {name}: warm " + " ".join(f"{x:.4f}" for x in r["warm"])
+            + " ms, flushed " + " ".join(f"{x:.4f}" for x in r["flushed"])
+            + f" ms; digest {digest}")
+    return out
+
+
 def kernel_times(dev, root):
     """--kernel-times: K2 (phase 4's image), T2a and T2b (phase 11's
     inputs, each in turns with x.clone()), K3 (phase 7's sizes, in turns
     with x.clone() and the per-block torch.cumsum), all warm and with the
-    L2 flushed, and T1 (phase 10's batch at both blocks, CUDA events, with
-    its inner loop's SASS), on the port found at ``root``; one JSON line."""
+    L2 flushed, W1 (phase 21's populations, warm and flushed,
+    w1_turn_times) and T1 (phase 10's batch at both blocks, CUDA events,
+    with its inner loop's SASS), on the port found at ``root``; one JSON
+    line."""
     from photorealistic_rendering_using_opencl_tpu_torch.ops import _cuda, compaction, mesh_brute
     from photorealistic_rendering_using_opencl_tpu_torch.ops import tonemap as tm
     from photorealistic_rendering_using_opencl_tpu_torch.scene.loader import load_scene
-    log(f"[4, 7, 10, 11] kernel times of the port at {root}")
+    log(f"[4, 7, 10, 11, 21] kernel times of the port at {root}")
     flush = l2_flush(dev)
     res = {"port_root": root, "K2": k2_times(tm, k2_image(dev), flush)}
     for name, fn, arg in t2_inputs(dev):
@@ -4825,9 +5182,10 @@ def kernel_times(dev, root):
                  for n in K3_SIZES]
     for t in res["K3"]:
         k3_log(t, "")
-    _, scene = load_scene(os.path.join(REPO, "scenes/cornell_hi.json"),
-                          models_dir=os.path.join(REPO, "scenes/assets"),
-                          device=dev)
+    cfg, scene = load_scene(os.path.join(REPO, "scenes/cornell_hi.json"),
+                            models_dir=os.path.join(REPO, "scenes/assets"),
+                            device=dev)
+    res["W1"] = w1_turn_times(cfg, scene, dev, flush)
     b = k1_populations(scene, dev)["random"]
     res["T1"] = {str(blk): t1_time(mesh_brute, b, scene.bf_feat,
                                    scene.bf_clusters, blk)
@@ -4890,7 +5248,7 @@ def main(argv=None) -> int:
     if times:
         kernel_times(dev, root)
         log("partial run (--kernel-times: phases 1-2 and the times of K2, "
-            "K3, T1, T2a and T2b); no result line")
+            "K3, T1, T2a, T2b and W1); no result line")
         return 0
 
     t_start = time.perf_counter()
@@ -4901,7 +5259,7 @@ def main(argv=None) -> int:
     def walk_phases(brute_img):
         """Phases 21-24 with the card's own mesh backend pick."""
         out = {}
-        out["w1"], out["l2"] = phase_walk(dev)
+        out["w1"], out["w1_extra"] = phase_walk(dev)
         done(21)
         out["crossover"], big = phase_crossover(dev, gpu_line)
         done(22)
@@ -4920,7 +5278,7 @@ def main(argv=None) -> int:
         return 0
     if walk:
         wp = walk_phases(None)
-        for key in ("w1", "l2", "crossover", "default", "bdpt"):
+        for key in ("w1", "w1_extra", "crossover", "default", "bdpt"):
             log(f"{key}: " + json.dumps(wp[key]))
         log("partial run (--walk: phases 1-2 and 21-24); no result line")
         return 0
@@ -5108,9 +5466,15 @@ def main(argv=None) -> int:
          "replaces_note": "no TPU kernel: the reference's lax.while_loop "
                           "walk (_bvh_traverse_chunk), which XLA keeps on the "
                           "device",
+         "redesigned": True, **w1_design(),
+         "registers": wp["w1_extra"]["ptxas"],
          "launches": sum(w1_paths.values()), "launches_by_path": w1_paths,
          "max_abs_err": 0.0, "mismatches": sum(
-             v["mismatches"] for v in w1_times.values()),
+             v["mismatches"] for v in w1_times.values()) + sum(
+             v["mismatches"] for v in wp["w1_extra"]["edges"].values()),
+         "edge_batches": wp["w1_extra"]["edges"],
+         "refill_sweep_ms": wp["w1_extra"]["refill_sweep"],
+         "ms_l2_flushed": w1_cam["flushed_ms"]["ms"],
          "ms": w1_cam["ms"], "plain_ms": w1_cam["plain_ms"],
          "bound_ms": w1_cam["bound"], "bound_by": w1_cam["by"],
          "bound_term": w1_cam["bound_term"],
@@ -5120,17 +5484,23 @@ def main(argv=None) -> int:
                        "ray's bytes over the L2 read rate this run's probe "
                        "measured (l2_rate), the FP32 operations over 67 "
                        "TFLOP/s",
-         "l2_rate": wp["l2"],
+         "l2_rate": wp["w1_extra"]["l2"],
          "library_ms": None,
          "library_note": "no PyTorch call walks a BVH",
          "timed_by": "ms: CUDA events around 10 back-to-back launches "
                      "(phase 3's camera population, 524,288 lanes); "
-                     "plain_ms: host clock around one call of the twin, "
-                     "ending in torch.cuda.synchronize (it syncs at every "
-                     "node step)",
+                     "events_ms and ms_l2_flushed: event_ms, an event pair "
+                     "around each of 20 launches queued behind a sleep, "
+                     "the latter after a 256 MB fill each; plain_ms: host "
+                     "clock around one call of the twin, ending in "
+                     "torch.cuda.synchronize (it syncs at every node step)",
+         "events_ms_by_population": {k: v["events_ms"]["ms"]
+                                     for k, v in w1_times.items()},
+         "ms_l2_flushed_by_population": {k: v["flushed_ms"]["ms"]
+                                         for k, v in w1_times.items()},
          **{f"{key}_by_population": {k: v[field] for k, v in w1_times.items()}
             for key, field in (("ms", "ms"), ("plain_ms", "plain_ms"),
-                               ("bound_ms", "bound"),
+                               ("bound_ms", "bound"), ("simt", "simt"),
                                ("visits_per_ray", "visits_per_ray"),
                                ("leaf_visits_per_ray", "leaf_visits_per_ray"),
                                ("tri_tests_per_ray", "tri_tests_per_ray"))}})

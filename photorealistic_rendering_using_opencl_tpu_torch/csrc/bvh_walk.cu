@@ -1,11 +1,12 @@
-// W1: the skip-link BVH walk, one thread a ray, for Hopper (sm_90a).
+// W1: the skip-link BVH walk for Hopper (sm_90a): warps that refill their
+// finished lanes from their CTA's block of rays.
 //
 // No TPU kernel: it replaces the reference's XLA while_loop
-// photorealistic_rendering_using_opencl_tpu/ops/intersect.py:
+// photorealistic_rendering_using_opencl_tpu/ops/intersect.py:293
 // _bvh_traverse_chunk (driven by bvh_traverse), the stackless form of the
 // OpenCL reference's per-thread stack walk.  Eager PyTorch would go back to
-// the host at every node step; here a ray walks the whole tree in one
-// thread.  Its plain twin is the port's intersect._bvh_traverse_chunk, and
+// the host at every node step; here a ray walks the whole tree inside one
+// launch.  Its plain twin is the port's intersect._bvh_traverse_chunk, and
 // every output (t, tri, u, v, node visits) is bitwise the twin's.
 //
 // The tree (scene/bvh_build.py: pack_for_device): node rows of 8 floats,
@@ -14,12 +15,14 @@
 // one threading for each direction octant (near child first); leaf rows of
 // 4 triangles x 9 floats, padded with zero triangles.
 //
-// A step: the lane's node row (two 16-byte loads) and its octant's links
-// (one 8-byte load), the slab test against its best t, and only when the
-// ray enters a leaf's box the leaf row (nine 16-byte loads) and its
-// triangles, in order, each against the best t so far.  Then the hit link
-// for an inner box the ray enters, the miss link otherwise; an any-hit
-// lane stops at its first hit.
+// A ray's walk: a step reads its node row (two 16-byte loads) and its
+// octant's links (one 8-byte load) and slab-tests the box against its best
+// t; when the ray enters a leaf's box, the leaf's triangles are tested, in
+// order, each against the best t so far.  Then the hit link for an inner
+// box the ray enters, the miss link otherwise; an any-hit ray stops at its
+// first hit.  The design below changes only which lane walks which ray, and
+// when, and how a leaf's bytes are loaded: every ray's node sequence, tests
+// and arithmetic are the twin's.
 //
 // Bound: the tables (under 50 MB up to ~300,000 triangles) stay in the
 // 50 MB L2, so device memory gives only the tables once and the rays' own
@@ -27,8 +30,26 @@
 // leaf entered) comes through the L2 at its read rate; against the slab
 // and triangle tests' FP32 operations over 67 TFLOP/s.  chip_smoke.py
 // (w1_bound) computes the three from the counters below and a measured L2
-// rate, and takes the largest.  A first, simple design: lanes of a warp
-// diverge as their walks part, and nothing is shared between them.
+// rate, and takes the largest.  The walk is bound by the latency of each
+// step's dependent L2 round trip, hidden by the warps an SM holds, and by
+// the steps that idle lanes sit through.  What the first design (one
+// thread a ray, 128 rays a CTA, 80 registers) lost there, and what this
+// one does:
+// - a warp lived as long as its longest walk, and lanes whose ray was done
+//   idled in it (node-loop SIMT efficiency 0.19-0.54 on chip_smoke.py's
+//   phase 21 populations).  Here a CTA takes a block of BLOCK_RAYS rays a
+//   lane, handed out by a counter in shared memory: a warp claims rays for
+//   its idle lanes (one atomic, lanes by rank in a ballot), and its busy
+//   lanes leave their walk to refill once REFILL lanes are idle, while the
+//   block has rays.  An inactive ray is finished at fetch.  A pool for the
+//   whole launch (one wave of persistent CTAs, a global counter) lost on
+//   the coherent populations: the warps' rays came from far-apart parts of
+//   the batch, and a lane had only ~4 rays to refill with (PERF.md);
+// - the leaf branch kept a leaf's 36 floats live (80 registers, 24 warps an
+//   SM).  Here a triangle's 9 floats are loaded (three 16-byte pieces) just
+//   before its test: 64 registers, 32 warps an SM.
+// Nothing is allocated and no other kernel runs: the pool lives in shared
+// memory.
 //
 // Numerics, held bitwise to the twin (and the twin to the reference on the
 // CPU):
@@ -42,15 +63,25 @@
 // - min and max propagate NaN (PTX min.NaN / max.NaN), as torch.minimum,
 //   torch.amax and jnp.minimum do, so a NaN ray's boxes are all missed.
 #include <cuda_runtime.h>
-#include <math_constants.h>
 #include <stdint.h>
+
+// chip_smoke.py's refill sweep builds copies with other values; the
+// library is built with this one
+#ifndef PRT_W1_REFILL
+#define PRT_W1_REFILL 16
+#endif
 
 namespace {
 
 constexpr int THREADS = 128;
+constexpr int BLOCK_RAYS = 2;  // rays a lane, on average, in a CTA's block
 constexpr int LEAF = 4;        // triangles a leaf row holds
 constexpr float EPS = 1e-5f;   // ops/math.py EPS
 constexpr unsigned FULL = 0xffffffffu;
+// a warp's busy lanes leave their walk for a refill once this many of its
+// lanes are idle; picked by chip_smoke.py's sweep on phase 21's populations
+constexpr int REFILL = PRT_W1_REFILL;
+static_assert(REFILL >= 1 && REFILL <= 32, "REFILL is a count of lanes");
 
 __device__ __forceinline__ float min_nan(float a, float b) {
   float r;
@@ -85,7 +116,7 @@ __device__ __forceinline__ float dot(V3 a, V3 b) {
 }
 
 // the reference's triangle test: true when the triangle is hit closer than
-// t_best; then t, u, v are set
+// t_best; t, u, v are set either way (they do not depend on t_best)
 __device__ __forceinline__ bool tri_test(V3 p0, V3 p1, V3 p2, V3 o, V3 d,
                                          float t_best, float& t, float& u,
                                          float& v) {
@@ -108,7 +139,53 @@ __device__ __forceinline__ float inv_dir(float x) {
   return __fdiv_rn(1.0f, fabsf(x) < 1e-12f ? copysignf(1e-12f, x) : x);
 }
 
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ unsigned long long warp_sum(unsigned long long x) {
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) x += __shfl_xor_sync(FULL, x, s);
+  return x;
+}
+
+// the lane's first in the group of lanes running this instruction
+__device__ __forceinline__ bool first_active(int lane) {
+  return lane == __ffs(__activemask()) - 1;
+}
+
+// triangle k (9 floats from float 9k) of a 144-byte leaf row: the three
+// 16-byte pieces that hold it
+template <int k>
+__device__ __forceinline__ void leaf_triangle(const float4* row, V3& p0,
+                                              V3& p1, V3& p2) {
+  constexpr int q = 9 * k / 4, s = 9 * k % 4;
+  const float4 a = row[q], b = row[q + 1], c = row[q + 2];
+  const float f[12] = {a.x, a.y, a.z, a.w, b.x, b.y,
+                       b.z, b.w, c.x, c.y, c.z, c.w};
+  p0 = {f[s], f[s + 1], f[s + 2]};
+  p1 = {f[s + 3], f[s + 4], f[s + 5]};
+  p2 = {f[s + 6], f[s + 7], f[s + 8]};
+}
+
+template <int k>
+__device__ __forceinline__ void leaf_test(const float4* row, int leaf,
+                                          int count, V3 o, V3 d, float& t,
+                                          float& u, float& v, int& tri) {
+  if (k < count) {
+    V3 p0, p1, p2;
+    leaf_triangle<k>(row, p0, p1, p2);
+    float tk, uk, vk;
+    if (tri_test(p0, p1, p2, o, d, t, tk, uk, vk)) {
+      t = tk;
+      u = uk;
+      v = vk;
+      tri = leaf * LEAF + k;
+    }
+  }
+}
+
+// at least one CTA an SM: ptxas then gives the render instance 64
+// registers (32 warps an SM), which measured faster than the 56 (36 warps)
+// it takes without the bound
+template <bool kCount>
+__global__ void __launch_bounds__(THREADS, 1)
 bvh_walk_kernel(const float4* __restrict__ nodes,
                 const int2* __restrict__ links,
                 const float4* __restrict__ leaves, int m,
@@ -121,95 +198,138 @@ bvh_walk_kernel(const float4* __restrict__ nodes,
                 float* __restrict__ out_u, float* __restrict__ out_v,
                 int32_t* __restrict__ out_steps,
                 unsigned long long* __restrict__ counters) {
-  const long long i = (long long)blockIdx.x * THREADS + threadIdx.x;
-  const bool inb = i < n;
-  unsigned visits = 0, leaf_visits = 0, tests = 0;
-  if (inb) {
-    const V3 o = {origin[3 * i], origin[3 * i + 1], origin[3 * i + 2]};
-    const V3 d = {direction[3 * i], direction[3 * i + 1],
-                  direction[3 * i + 2]};
-    const V3 id = {inv_dir(d.x), inv_dir(d.y), inv_dir(d.z)};
-    const long long base =
-        (long long)((d.x < 0.f) | ((d.y < 0.f) << 1) | ((d.z < 0.f) << 2)) *
-        m;
-    const bool anyh = any_hit[i] != 0;
-    float t = t_init[i], u = 0.f, v = 0.f;
-    int tri = -1;
-    int node = active[i] ? 0 : m;
-    while (node < m) {
-      ++visits;
-      const float4 a = nodes[2 * (long long)node];
-      const float4 b = nodes[2 * (long long)node + 1];
-      const int2 lk = links[base + node];
-      const float lx = __fmul_rn(__fsub_rn(a.x, o.x), id.x);
-      const float ly = __fmul_rn(__fsub_rn(a.y, o.y), id.y);
-      const float lz = __fmul_rn(__fsub_rn(a.z, o.z), id.z);
-      const float hx = __fmul_rn(__fsub_rn(a.w, o.x), id.x);
-      const float hy = __fmul_rn(__fsub_rn(b.x, o.y), id.y);
-      const float hz = __fmul_rn(__fsub_rn(b.y, o.z), id.z);
-      const float entry = max_nan(
-          max_nan(max_nan(min_nan(lx, hx), min_nan(ly, hy)), min_nan(lz, hz)),
-          EPS);
-      const float exit_ = min_nan(
-          min_nan(min_nan(max_nan(lx, hx), max_nan(ly, hy)), max_nan(lz, hz)),
-          t);
-      const bool box_hit = entry <= exit_;
-      const int meta = __float_as_int(b.w);
-      const int count = meta & 7;
-      if (box_hit && count > 0) {
-        ++leaf_visits;
-        const int leaf = meta >> 3;
-        const float4* row = leaves + 9 * (long long)leaf;
-        float f[36];
-#pragma unroll
-        for (int q = 0; q < 9; ++q) {
-          const float4 x = row[q];
-          f[4 * q] = x.x;
-          f[4 * q + 1] = x.y;
-          f[4 * q + 2] = x.z;
-          f[4 * q + 3] = x.w;
-        }
-#pragma unroll
-        for (int k = 0; k < LEAF; ++k) {
-          if (k < count) {
-            ++tests;
-            const float* p = f + 9 * k;
-            float tk, uk, vk;
-            if (tri_test({p[0], p[1], p[2]}, {p[3], p[4], p[5]},
-                         {p[6], p[7], p[8]}, o, d, t, tk, uk, vk)) {
-              t = tk;
-              u = uk;
-              v = vk;
-              tri = leaf * LEAF + k;
-            }
-          }
+  // the CTA's block of rays [first, first + block_n), handed out in order
+  __shared__ unsigned handed;
+  if (threadIdx.x == 0) handed = 0;
+  __syncthreads();
+  const long long first = (long long)blockIdx.x * THREADS * BLOCK_RAYS;
+  const long long block_n = min((long long)THREADS * BLOCK_RAYS, n - first);
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  // the work counters: a lane's visits, leaves entered and triangle tests;
+  // the warp steps and the warp steps with a leaf entered, counted by the
+  // first lane of each group of lanes that runs them together
+  unsigned long long c_visits = 0, c_leaves = 0, c_tests = 0;
+  unsigned long long c_wsteps = 0, c_wleaf = 0;
+  // the lane's ray in flight
+  V3 o = {0.f, 0.f, 0.f}, d = o, id = o;
+  long long ray = 0;
+  unsigned base = 0;
+  float t = 0.f, u = 0.f, v = 0.f;
+  int tri = -1, node = 0, steps = 0;
+  bool anyh = false, busy = false, more = true;
+
+  for (;;) {
+    unsigned idle = __ballot_sync(FULL, !busy);
+    // refill: the block's next popc(idle) rays to the idle lanes by rank
+    while (more && (idle == FULL || __popc(idle) >= REFILL)) {
+      const unsigned want = __popc(idle);
+      unsigned start = 0;
+      if (lane == 0) start = atomicAdd(&handed, want);
+      start = __shfl_sync(FULL, start, 0);
+      more = start + want < block_n;
+      const long long j = first + start + __popc(idle & below);
+      if (!busy && j < first + block_n) {
+        ray = j;
+        t = t_init[j];
+        if (active[j] && m > 0) {
+          o = {origin[3 * j], origin[3 * j + 1], origin[3 * j + 2]};
+          d = {direction[3 * j], direction[3 * j + 1], direction[3 * j + 2]};
+          id = {inv_dir(d.x), inv_dir(d.y), inv_dir(d.z)};
+          base = (unsigned)((d.x < 0.f) | ((d.y < 0.f) << 1) |
+                            ((d.z < 0.f) << 2)) * (unsigned)m;
+          anyh = any_hit[j] != 0;
+          u = v = 0.f;
+          tri = -1;
+          node = steps = 0;
+          busy = true;
+        } else {  // finished at fetch: it visits no node
+          out_t[j] = t;
+          out_tri[j] = -1;
+          out_u[j] = 0.f;
+          out_v[j] = 0.f;
+          if (out_steps) out_steps[j] = 0;
         }
       }
-      node = (box_hit && count == 0) ? lk.x : lk.y;
-      if (anyh && tri >= 0) node = m;
+      idle = __ballot_sync(FULL, !busy);
     }
-    out_t[i] = t;
-    out_tri[i] = tri;
-    out_u[i] = u;
-    out_v[i] = v;
-    if (out_steps) out_steps[i] = (int32_t)visits;
+    if (idle == FULL) break;  // no ray left in the warp or its block
+
+    // the busy lanes walk, each its own ray, as in the first design: until
+    // the ray is done, or, while the block has rays, until REFILL lanes
+    // are idle
+    if (busy) {
+      do {
+        if (kCount && first_active(lane)) ++c_wsteps;
+        ++steps;
+        const float4 a = __ldg(nodes + 2 * node);
+        const float4 b = __ldg(nodes + 2 * node + 1);
+        const int2 lk = __ldg(links + (base + (unsigned)node));
+        const float lx = __fmul_rn(__fsub_rn(a.x, o.x), id.x);
+        const float ly = __fmul_rn(__fsub_rn(a.y, o.y), id.y);
+        const float lz = __fmul_rn(__fsub_rn(a.z, o.z), id.z);
+        const float hx = __fmul_rn(__fsub_rn(a.w, o.x), id.x);
+        const float hy = __fmul_rn(__fsub_rn(b.x, o.y), id.y);
+        const float hz = __fmul_rn(__fsub_rn(b.y, o.z), id.z);
+        const float entry =
+            max_nan(max_nan(max_nan(min_nan(lx, hx), min_nan(ly, hy)),
+                            min_nan(lz, hz)),
+                    EPS);
+        const float exit_ =
+            min_nan(min_nan(min_nan(max_nan(lx, hx), max_nan(ly, hy)),
+                            max_nan(lz, hz)),
+                    t);
+        const bool box_hit = entry <= exit_;
+        const int meta = __float_as_int(b.w);
+        const int count = meta & 7;
+        if (box_hit && count > 0) {
+          const int leaf = meta >> 3;
+          if (kCount) {
+            if (first_active(lane)) ++c_wleaf;
+            ++c_leaves;
+            c_tests += min(count, LEAF);
+          }
+          const float4* row = leaves + 9 * (long long)leaf;
+          leaf_test<0>(row, leaf, count, o, d, t, u, v, tri);
+          leaf_test<1>(row, leaf, count, o, d, t, u, v, tri);
+          leaf_test<2>(row, leaf, count, o, d, t, u, v, tri);
+          leaf_test<3>(row, leaf, count, o, d, t, u, v, tri);
+        }
+        node = (anyh && tri >= 0) ? m : (box_hit && count == 0) ? lk.x : lk.y;
+      } while (node < m && (!more || __popc(__activemask()) > 32 - REFILL));
+      if (node >= m) {
+        out_t[ray] = t;
+        out_tri[ray] = tri;
+        out_u[ray] = u;
+        out_v[ray] = v;
+        if (out_steps) out_steps[ray] = steps;
+        if (kCount) c_visits += steps;
+        busy = false;
+      }
+    }
   }
-  if (counters) {
-    const unsigned sv = __reduce_add_sync(FULL, visits);
-    const unsigned sl = __reduce_add_sync(FULL, leaf_visits);
-    const unsigned st = __reduce_add_sync(FULL, tests);
-    if ((threadIdx.x & 31) == 0) {
-      atomicAdd(&counters[0], (unsigned long long)sv);
-      atomicAdd(&counters[1], (unsigned long long)sl);
-      atomicAdd(&counters[2], (unsigned long long)st);
+
+  if (kCount) {
+    c_visits = warp_sum(c_visits);
+    c_leaves = warp_sum(c_leaves);
+    c_tests = warp_sum(c_tests);
+    c_wsteps = warp_sum(c_wsteps);
+    c_wleaf = warp_sum(c_wleaf);
+    if (lane == 0) {
+      atomicAdd(&counters[0], c_visits);
+      atomicAdd(&counters[1], c_leaves);
+      atomicAdd(&counters[2], c_tests);
+      atomicAdd(&counters[3], c_wsteps);
+      atomicAdd(&counters[4], c_wleaf);
     }
   }
 }
 
 }  // namespace
 
-// One thread a ray over n > 0 rays; nodes, links and leaves start on
-// 16-byte boundaries; out_steps and counters may be null.
+// n > 0 rays, a CTA for each block of THREADS * BLOCK_RAYS; nodes and links
+// start on 16-byte boundaries, leaves on 16 (its rows are 144 bytes);
+// out_steps and counters (5 words) may be null.
 extern "C" int prt_bvh_walk(const float* nodes, const int32_t* links,
                             const float* leaves, int m, const float* origin,
                             const float* direction, const float* t_init,
@@ -217,11 +337,19 @@ extern "C" int prt_bvh_walk(const float* nodes, const int32_t* links,
                             long long n, float* out_t, int32_t* out_tri,
                             float* out_u, float* out_v, int32_t* out_steps,
                             unsigned long long* counters, void* stream) {
-  const long long blocks = (n + THREADS - 1) / THREADS;
-  bvh_walk_kernel<<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      reinterpret_cast<const float4*>(nodes),
-      reinterpret_cast<const int2*>(links),
-      reinterpret_cast<const float4*>(leaves), m, origin, direction, t_init,
-      active, any_hit, n, out_t, out_tri, out_u, out_v, out_steps, counters);
+  const long long per = (long long)THREADS * BLOCK_RAYS;
+  const unsigned blocks = (unsigned)((n + per - 1) / per);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const float4* n4 = reinterpret_cast<const float4*>(nodes);
+  const int2* l2 = reinterpret_cast<const int2*>(links);
+  const float4* f4 = reinterpret_cast<const float4*>(leaves);
+  if (counters)
+    bvh_walk_kernel<true><<<blocks, THREADS, 0, s>>>(
+        n4, l2, f4, m, origin, direction, t_init, active, any_hit, n, out_t,
+        out_tri, out_u, out_v, out_steps, counters);
+  else
+    bvh_walk_kernel<false><<<blocks, THREADS, 0, s>>>(
+        n4, l2, f4, m, origin, direction, t_init, active, any_hit, n, out_t,
+        out_tri, out_u, out_v, out_steps, counters);
   return (int)cudaGetLastError();
 }

@@ -4,9 +4,10 @@
 W1 is no TPU kernel: the reference runs the walk as one XLA
 ``lax.while_loop`` (its ``ops/intersect.py:_bvh_traverse_chunk``), which
 stays on the device for the whole walk.  Eager PyTorch would go back to the
-host at every node step, so on the card the walk is one kernel, one thread
-a ray.  Its plain twin is ``intersect._bvh_traverse_chunk``, which the
-CPU runs and ``chip_smoke.py`` holds W1 against, bitwise, on the card.
+host at every node step, so on the card the walk is one kernel: a ray a
+lane, a CTA's warps refilling their finished lanes from the CTA's block of
+rays.  Its plain twin is ``intersect._bvh_traverse_chunk``, which the CPU
+runs and ``chip_smoke.py`` holds W1 against, bitwise, on the card.
 
 ``walk`` launches W1 for CUDA tensors and raises for any other device (the
 CPU's caller, ``intersect.bvh_traverse``, takes the twin).  A failed build
@@ -19,16 +20,19 @@ import torch
 from photorealistic_rendering_using_opencl_tpu_torch.ops import _cuda
 from photorealistic_rendering_using_opencl_tpu_torch.ops.mesh_brute import _lane_tensor
 
-# node visits, leaf visits that tested triangles, triangle tests
-W1_COUNTERS = 3
+# node visits, leaf visits that tested triangles, triangle tests, warp
+# node steps, warp steps in which a lane entered a leaf
+W1_COUNTERS = 5
 
 
 class _BvhWalkKernel:
     """Wrapper of ``prt_bvh_walk``.  ``launches`` counts kernel launches and
-    nothing else.  ``counters``, an int64 [3] tensor on the card, receives
+    nothing else.  ``counters``, an int64 [5] tensor on the card, receives
     the launch's work: node visits, visits to a leaf whose box the ray
-    entered (each reads the 144-byte leaf row) and triangle tests; the
-    render path passes none."""
+    entered (each reads the 144-byte leaf row), triangle tests, the warp
+    node steps the kernel ran and those in which a lane entered a leaf; the
+    render path passes none (and runs the kernel's instance that counts
+    nothing)."""
 
     def __init__(self):
         self.launches = 0

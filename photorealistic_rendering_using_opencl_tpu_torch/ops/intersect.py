@@ -351,7 +351,8 @@ def bvh_traverse(scene: SceneData, origin, direction, t_init, any_hit=False,
 
 @torch.no_grad()
 def _bvh_traverse_chunk(scene: SceneData, origin, direction, t_init,
-                        any_hit=False, active=None, count_steps: bool = False):
+                        any_hit=False, active=None, count_steps: bool = False,
+                        counters=None):
     """The walk's plain twin, the reference's ``_bvh_traverse_chunk`` op for
     op: every lane advances one node a step (hit and inner: the octant's
     hit link, else its miss link) until every lane has passed the last
@@ -362,7 +363,9 @@ def _bvh_traverse_chunk(scene: SceneData, origin, direction, t_init,
     (``_walk_tri_intersect``).  A lane's result depends on that lane
     alone, so lanes that are done leave the arrays and only the lanes that
     enter a leaf fetch and test it (the reference tests every lane and
-    discards the rest): a step costs what those lanes need."""
+    discards the rest): a step costs what those lanes need.  ``counters``,
+    an int64 tensor of at least 3 words, gains the walk's node visits,
+    leaves entered and triangle tests, as W1 counts them."""
     origin, direction = origin.detach(), direction.detach()
     nodes, links = scene.bvh_nodes.detach(), scene.bvh_links
     leaves = scene.leaf_verts.detach()
@@ -405,6 +408,10 @@ def _bvh_traverse_chunk(scene: SceneData, origin, direction, t_init,
         count = meta & 7
         leaf_idx = meta >> 3
         at = torch.nonzero(box_hit & (count > 0)).squeeze(1)
+        if counters is not None:
+            counters[0] += lane.numel()
+            counters[1] += at.numel()
+            counters[2] += torch.clamp(count[at], max=LEAF_SIZE).sum()
         if at.numel():
             tv = leaves[leaf_idx[at].long()].reshape(-1, LEAF_SIZE, 3, 3)
             ta, tria, ua, va = t[at], tri[at], u[at], v[at]

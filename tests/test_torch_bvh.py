@@ -156,6 +156,38 @@ def test_walk_twin_bitwise_reference(walk_scene, pop):
     assert (tri >= 0).sum() > 50 and ((tri >= 0) & ah).sum() > 10
 
 
+@pytest.mark.parametrize("pop", ["random", "camera", "surface"])
+def test_walk_twin_lanes_independent_of_batch(walk_scene, pop):
+    """What W1's schedule rests on (any lane may walk any ray, at any
+    time): each lane's t, tri, u, v and node visits from the twin are
+    bitwise the same when the batch is permuted, or when a subset of it
+    runs with every other lane made inactive (those return t_init, -1, 0,
+    0 and no visit); the work counters add up over the lanes."""
+    _, jsc, _, sc = walk_scene
+    o, d, ti, ah, act = (torch.from_numpy(x) for x in _rays(pop, jsc))
+    r = np.random.default_rng(("random", "camera", "surface").index(pop))
+    full_c = torch.zeros(3, dtype=torch.int64)
+    full = intersect.bvh_traverse(sc, o, d, ti, any_hit=ah, active=act,
+                                  count_steps=True)
+    intersect._bvh_traverse_chunk(sc, o, d, ti, ah, act, True, full_c)
+    perm = torch.from_numpy(r.permutation(o.shape[0]))
+    perm_c = torch.zeros(3, dtype=torch.int64)
+    permuted = intersect._bvh_traverse_chunk(
+        sc, o[perm], d[perm], ti[perm], ah[perm], act[perm], True, perm_c)
+    for name, a, b in zip(("t", "tri", "u", "v", "steps"), full, permuted):
+        _same_bits(a[perm].numpy(), b.numpy(), name)
+    assert torch.equal(full_c, perm_c) and int(full_c[0]) == int(full[4].sum())
+    subset = act & torch.from_numpy(r.uniform(size=o.shape[0]) < 0.3)
+    part = intersect.bvh_traverse(sc, o, d, ti, any_hit=ah, active=subset,
+                                  count_steps=True)
+    for name, a, b in zip(("t", "tri", "u", "v", "steps"), full, part):
+        _same_bits(a[subset].numpy(), b[subset].numpy(), name)
+    rest = ~subset
+    _same_bits(part[0][rest].numpy(), ti[rest].numpy(), "t_init")
+    assert (part[1][rest] == -1).all() and (part[4][rest] == 0).all()
+    assert not part[2][rest].any() and not part[3][rest].any()
+
+
 def test_mesh_closest_through_the_walk(walk_scene):
     """mesh_closest's bvh branch returns the walk's winners and the
     leaf-major tables (no validation; exclude_tri ignored).  (The bvh

@@ -1091,3 +1091,27 @@ def test_bdpt_on_card_matches_cpu(cuda, accel):
     k1_0, w1_0 = launched["cuda"]
     assert (k1 - k1_0 if accel == "brute" else w1 - w1_0) == 2 * (4 + 2 + 1)
     assert r["unexplained"] == 0
+
+
+# the edge batches of chip_smoke.w1_edge_batches, in its order
+W1_EDGES = ("n=1", "n=31", "n=33", "under one wave", "2,000,003 rays",
+            "90% inactive", "any-hit, NaN, inf, inside", "back to back",
+            "side stream")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", range(len(W1_EDGES)), ids=W1_EDGES)
+def test_w1_edge_batch_matches_twin(cuda, edge):
+    """W1 on chip_smoke's edge batches (cornell.json + 5,120 triangles):
+    t, tri, u, v and node visits bitwise the twin's, and its visit, leaf
+    and test counters the twin's counts (chip_smoke.w1_check); two batches
+    of other sizes launched back to back, and one on a stream that is not
+    the default."""
+    cs = _chip_smoke()
+    _, sc = _walk_scene(cuda)
+    name, (batches, side) = list(cs.w1_edge_batches(sc, cuda).items())[edge]
+    problems = []
+    runs, _ = cs.w1_check(name, sc, [
+        (batches, torch.cuda.Stream(cuda) if side else None)], problems)
+    assert problems == []
+    assert [sum(r[2].values()) for r in runs] == [0] * len(batches)

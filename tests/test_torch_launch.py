@@ -115,6 +115,28 @@ def test_wrapper_launches_on_its_tensors_device(fake_cuda, kernel):
     assert fake_cuda["current"] == torch.device("cuda", 0)
 
 
+def test_w1_launch_arguments(fake_cuda):
+    """W1's C entry gets every table, lane and output pointer, the node
+    visits and the W1_COUNTERS-word counters where asked, nothing else (its
+    ray pool is in shared memory), then the stream; counters of another
+    length are refused before any launch."""
+    wrapper, args, entry = _w1()
+    counters = torch.zeros(bvh_walk.W1_COUNTERS, dtype=torch.int64)
+    t, tri, u, v, steps = wrapper(*args[:8], count_steps=True,
+                                  counters=counters)
+    [(name, dev, c_args)] = fake_cuda["calls"]
+    assert (name, dev) == (entry, torch.device("cpu"))
+    assert len(c_args) == len(_cuda._SIGNATURES[entry]) == 17
+    assert c_args[10:16] == tuple(x.data_ptr() for x in (t, tri, u, v, steps,
+                                                         counters))
+    assert bvh_walk.W1_COUNTERS == 5
+    with pytest.raises(ValueError):
+        wrapper(*args[:8], counters=torch.zeros(3, dtype=torch.int64))
+    assert len(fake_cuda["calls"]) == 1
+    wrapper(*args[:8])
+    assert fake_cuda["calls"][1][2][14:16] == (None, None)
+
+
 # ---------------------------------------------------------------------------
 # F10: K2's bands
 # ---------------------------------------------------------------------------
