@@ -173,6 +173,15 @@ drove before the walk was ported; phases 21-24 take the card's own pick.
      5,120-triangle icosphere, every decision recorded on both: pixels
      that took another one left out (at most FLIP_PIXELS), the rest within
      FWD_BDPT.
+ 25. Several ranks (parallel/), cornell_hi with the card's pick: (a) one
+     rank over NCCL, render_sharded at 512^2 x 8 spp bitwise trace_regen of
+     the whole frame in this process (both timed, W1 counted), and one
+     make_train_step step at 256^2 x 1 spp (its seconds, peak memory and
+     the bytes of its gradient all-reduce); (b) two subprocess ranks on
+     this one card over gloo (NCCL refuses two ranks on one GPU), the same
+     frame bitwise (a)'s; (c) their train step's updated colour and
+     medium_sigma_t bitwise the 1-rank update, the losses within 1e-6.  The
+     two ranks share the card: their times are not a scaling number.
 
 Prints the kernels' JSON line (with each kernel's bound: the larger of its
 bytes over 3.35 TB/s and its operations over 67 TFLOP/s, the H100 SXM's
@@ -208,6 +217,10 @@ runs phases 1-2 and 17-20 alone; no result line.
 
 runs phases 1-2 and 21-24 alone (phase 23 renders its own brute frame);
 no result line.
+
+    python3 chip_smoke.py --sharded
+
+runs phases 1-2 and 25 alone; no result line.
 
     python3 chip_smoke.py --bdpt-bound
 
@@ -5112,6 +5125,195 @@ def phase_bdpt(dev, gpu_line, hi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 25: several ranks (parallel/)
+# ---------------------------------------------------------------------------
+
+# the sharded frame (a, b) and the train step (c)
+SHARD_SIDE, SHARD_SPP = 512, 8
+TRAIN_SIDE, TRAIN_TARGET = 256, 0.2
+SHARD_RANKS = 2
+
+
+def _sync(dev):
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _shard_scene(dev):
+    from photorealistic_rendering_using_opencl_tpu_torch.scene.loader import load_scene
+    return load_scene(os.path.join(REPO, "scenes/cornell_hi.json"),
+                      models_dir=os.path.join(REPO, "scenes/assets"),
+                      device=dev)
+
+
+def _shard_work(dev, cfg, scene):
+    """This rank's part of the sharded frame and of one train step, each
+    counted and timed (host clock to a sync) -> (readings, (hdr, alpha),
+    (the step's loss, colour and medium_sigma_t))."""
+    import torch
+    from photorealistic_rendering_using_opencl_tpu_torch.ops.camera_rays import (
+        default_camera,
+    )
+    from photorealistic_rendering_using_opencl_tpu_torch.parallel.render import (
+        PARAM_LEAVES, make_train_step, render_sharded,
+    )
+    cam = default_camera(SHARD_SIDE, SHARD_SIDE).pytree(dev)
+    reset_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    img, alpha = render_sharded(cfg, scene, cam, SHARD_SIDE, SHARD_SIDE,
+                                SHARD_SPP)
+    _sync(dev)
+    out = dict(render_s=time.perf_counter() - t0,
+               render_W1=read_counts()["W1"])
+    tcam = default_camera(TRAIN_SIDE, TRAIN_SIDE).pytree(dev)
+    step = make_train_step(cfg, TRAIN_SIDE, TRAIN_SIDE, 1)
+    target = torch.full((TRAIN_SIDE * TRAIN_SIDE, 3), TRAIN_TARGET,
+                        device=dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    loss, s2 = step(scene, tcam, target, 0)
+    _sync(dev)
+    out.update(step_s=time.perf_counter() - t0, step_W1=read_counts()["W1"],
+               loss=float(loss),
+               grad_allreduce_bytes=4 * sum(getattr(scene, k).numel()
+                                            for k in PARAM_LEAVES),
+               step_peak_gib=(torch.cuda.max_memory_allocated(dev) / 2**30
+                              if dev.type == "cuda" else float("nan")))
+    return out, (img, alpha), (s2.color, s2.medium_sigma_t)
+
+
+def _sharded_rank(rank, world, init, out_dir, device="cuda"):
+    """One of phase 25's subprocess ranks (spawned): gloo, since its card
+    is shared; its readings, step and (rank 0) frame pickled to out_dir."""
+    import pickle
+
+    import torch
+    from photorealistic_rendering_using_opencl_tpu_torch.parallel import distributed
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.initialize(init, world, rank, device=device)
+    try:
+        dev = distributed.rank_device(device)
+        cfg, scene = _shard_scene(dev)
+        out, (img, alpha), (color, sigma) = _shard_work(dev, cfg, scene)
+        out.update(backend=torch.distributed.get_backend(),
+                   mesh_accel=cfg.mesh_accel)
+        res = dict(out=out, color=color.cpu().numpy(),
+                   sigma=sigma.cpu().numpy())
+        if rank == 0:
+            res.update(img=img.cpu().numpy(), alpha=alpha.cpu().numpy())
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(res, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def phase_sharded(dev, gpu_line):
+    """Phase 25: parallel/ on the card.  (a) One rank over NCCL: the
+    sharded cornell_hi frame (W1 by the card's pick) bitwise
+    ``trace_regen`` of the whole frame in this process, and one train step.
+    (b) SHARD_RANKS subprocess ranks on this one card over gloo (NCCL
+    refuses two ranks on one GPU; the shards go through host memory): the
+    same frame, bitwise (a)'s.  (c) The train step on 1 and SHARD_RANKS
+    ranks: the updated colour and medium_sigma_t bitwise, the losses within
+    1e-6.  The ranks of (b) share the card: their times are not a scaling
+    number."""
+    import pickle
+    import tempfile
+
+    import torch
+    from photorealistic_rendering_using_opencl_tpu_torch.models import pathtracer
+    from photorealistic_rendering_using_opencl_tpu_torch.ops.camera_rays import (
+        default_camera,
+    )
+    from photorealistic_rendering_using_opencl_tpu_torch.parallel import distributed
+
+    cfg, scene = _shard_scene(dev)
+    log(f"[25] several ranks: cornell_hi ({cfg.n_triangles} triangles, "
+        f"mesh_accel={cfg.mesh_accel!r}), {SHARD_SIDE}^2 x {SHARD_SPP} spp "
+        f"sharded; train step {TRAIN_SIDE}^2 x 1 spp")
+    with tempfile.TemporaryDirectory() as d:
+        distributed.initialize("file://" + os.path.join(d, "one"), 1, 0,
+                               device=str(dev))
+        try:
+            backend = torch.distributed.get_backend()
+            one, (img, alpha), (color1, sigma1) = _shard_work(dev, cfg, scene)
+        finally:
+            torch.distributed.destroy_process_group()
+        cam = default_camera(SHARD_SIDE, SHARD_SIDE).pytree(dev)
+        px, py = pathtracer.pixel_grid(SHARD_SIDE, SHARD_SIDE, dev)
+        reset_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            rad, a = pathtracer.trace_regen(cfg, scene, cam, SHARD_SIDE,
+                                            SHARD_SIDE, SHARD_SPP, px, py, 0)
+        _sync(dev)
+        plain_s = time.perf_counter() - t0
+        plain_w1 = read_counts()["W1"]
+        if not (same_bits(img, rad.reshape(img.shape))
+                and same_bits(alpha, a.reshape(alpha.shape))):
+            fail("sharded (1 rank): the frame is not bitwise trace_regen's")
+        if min(one["render_W1"], one["step_W1"]) == 0:
+            fail(f"sharded (1 rank): W1 never launched ({one})")
+        log(f"  (a) 1 rank over {backend}: render_sharded {one['render_s']:.3f}"
+            f" s (W1 {one['render_W1']}), trace_regen of the whole frame "
+            f"{plain_s:.3f} s (W1 {plain_w1}), bitwise; train step "
+            f"{one['step_s']:.3f} s (W1 {one['step_W1']}), loss "
+            f"{one['loss']:.9g}, peak {one['step_peak_gib']:.2f} GiB, "
+            f"gradient all-reduce {one['grad_allreduce_bytes']} bytes; on "
+            f"{gpu_line}")
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ctx = torch.multiprocessing.start_processes(
+            _sharded_rank, nprocs=SHARD_RANKS, join=False,
+            start_method="spawn",
+            args=(SHARD_RANKS, "file://" + os.path.join(d, "many"), d,
+                  str(dev)))
+        while not ctx.join():
+            pass
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(SHARD_RANKS):
+            with open(os.path.join(d, f"rank{r}.pkl"), "rb") as f:
+                ranks.append(pickle.load(f))
+    r0 = ranks[0]
+    if not (same_bits(torch.from_numpy(r0["img"]), img.cpu())
+            and same_bits(torch.from_numpy(r0["alpha"]), alpha.cpu())):
+        fail(f"sharded ({SHARD_RANKS} ranks): the frame is not bitwise the "
+             "1-rank frame")
+    for r, res in enumerate(ranks):
+        o = res["out"]
+        if min(o["render_W1"], o["step_W1"]) == 0 or o["mesh_accel"] != "bvh":
+            fail(f"sharded rank {r}: W1 never launched ({o})")
+        if not (np.array_equal(res["color"], color1.cpu().numpy())
+                and np.array_equal(res["sigma"], sigma1.cpu().numpy())):
+            fail(f"train step: rank {r} of {SHARD_RANKS}'s update is not "
+                 "bitwise the 1-rank update")
+        if abs(o["loss"] - one["loss"]) > 1e-6:
+            fail(f"train step: loss {o['loss']} on {SHARD_RANKS} ranks, "
+                 f"{one['loss']} on 1")
+    many = [res["out"] for res in ranks]
+    log(f"  (b, c) {SHARD_RANKS} ranks over {many[0]['backend']} sharing "
+        f"this one card (time-shared: not a scaling number): render_sharded "
+        + ", ".join(f"{o['render_s']:.3f}" for o in many)
+        + " s by rank (W1 " + ", ".join(str(o["render_W1"]) for o in many)
+        + "), frame bitwise (a)'s; train step "
+        + ", ".join(f"{o['step_s']:.3f}" for o in many) + " s by rank, loss "
+        f"{many[0]['loss']:.9g} (1 rank {one['loss']:.9g}), update bitwise the "
+        f"1-rank one; {wall:.1f} s with the ranks' start; on {gpu_line}")
+    return dict(one_rank=dict(backend=backend, plain_trace_regen_s=plain_s,
+                              plain_W1=plain_w1, **one),
+                ranks=many, ranks_wall_s=wall)
+
+
 def phase_k1_sweep(dev, pops):
     """--k1-sweep: K1_SWEEP's configurations on phase 3's populations."""
     from photorealistic_rendering_using_opencl_tpu_torch.scene.loader import load_scene
@@ -5202,14 +5404,15 @@ def main(argv=None) -> int:
     census = argv == ["--op-census"]
     paths = argv == ["--paths"]
     walk = argv == ["--walk"]
+    sharded = argv == ["--sharded"]
     bdpt_bound = argv == ["--bdpt-bound"]
     times = argv[:1] == ["--kernel-times"] and (
         len(argv) == 1 or (len(argv) == 3 and argv[1] == "--port-root"))
     if argv and not (kernels_only or sweep or census or times or paths
-                     or walk or bdpt_bound):
+                     or walk or bdpt_bound or sharded):
         fail(f"unknown arguments {argv}: none, --kernels-only, --k1-sweep, "
-             "--op-census, --paths, --walk, --bdpt-bound or --kernel-times "
-             "[--port-root DIR]")
+             "--op-census, --paths, --walk, --sharded, --bdpt-bound or "
+             "--kernel-times [--port-root DIR]")
     root = os.path.abspath(argv[2]) if times and len(argv) == 3 else REPO
     if not os.path.isdir(os.path.join(root, PKG)):
         fail(f"the port package {PKG}/ is not in {root}")
@@ -5275,6 +5478,11 @@ def main(argv=None) -> int:
         log("BDPT bound: " + json.dumps(phase_bdpt_bound(dev)))
         log("partial run (--bdpt-bound: phases 1-2 and the readings of "
             "FWD_BDPT); no result line")
+        return 0
+    if sharded:
+        log("sharded: " + json.dumps(phase_sharded(dev, gpu_line)))
+        done(25)
+        log("partial run (--sharded: phases 1-2 and 25); no result line")
         return 0
     if walk:
         wp = walk_phases(None)
@@ -5347,6 +5555,8 @@ def main(argv=None) -> int:
     wp = walk_phases(regen_img)
     w1_times, sweep_out, default, bdpt = (
         wp["w1"], wp["crossover"], wp["default"], wp["bdpt"])
+    shard = phase_sharded(dev, gpu_line)
+    done(25)
 
     cam = k1_times["camera"]
     k1_paths = {"forward 512^2 x 8 spp (regen)": launches["K1"],
@@ -5378,7 +5588,11 @@ def main(argv=None) -> int:
                 "traversal AOV 512^2": default["traversal"]["W1"],
                 "icosphere 327,680 triangles 512^2 x 2 spp (regen)":
                     default["big_mesh"]["W1"],
-                "BDPT cornell_hi 512^2 x 8 spp": bdpt["cornell_hi"]["W1"]}
+                "BDPT cornell_hi 512^2 x 8 spp": bdpt["cornell_hi"]["W1"],
+                f"sharded {SHARD_SIDE}^2 x {SHARD_SPP} spp, 1 rank "
+                "(render_sharded)": shard["one_rank"]["render_W1"],
+                f"train step {TRAIN_SIDE}^2 x 1 spp, 1 rank (scan fwd+bwd)":
+                    shard["one_rank"]["step_W1"]}
     w1_cam = w1_times["camera"]
     k2_paths = {"forward 512^2 x 8 spp (regen)": launches["K2"],
                 "forward 512^2 x 8 spp (scan)": sw["scan"]["k2"],
@@ -5529,6 +5743,7 @@ def main(argv=None) -> int:
     log("crossover: " + json.dumps(sweep_out))
     log("default path: " + json.dumps(default))
     log("BDPT: " + json.dumps(bdpt))
+    log("sharded: " + json.dumps(shard))
     log(f"total {time.perf_counter() - t_start:.1f} s after the build")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu_line, flush=True)

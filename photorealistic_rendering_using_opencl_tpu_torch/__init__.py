@@ -10,9 +10,13 @@ Layout:
     ops/       math, RNG, sampling, camera, intersection (spheres, SDFs,
                boxes, quads, + the mesh kernel K1), BSDFs, lights, phase
                functions, media, environment maps, tonemap (+ the display
-               kernel K2) and the CUDA build and loader ``_cuda.py``
-    scene/     scene types, JSON loader, OBJ import, BVH build (host)
+               kernel K2), noise and texture sampling, and the CUDA build
+               and loader ``_cuda.py``
+    scene/     scene types, JSON loader, OBJ import, BVH build (host),
+               Phong tessellation
     models/    integrator, the render loops, progressive accumulation, AOVs
+    parallel/  several devices over torch.distributed: the sharded render,
+               the all-reduced train step, a one-step check over n ranks
     runtime/   the command line (``python -m`` this package), the interactive
                camera, checkpoints, terminal frames, and the shared native
                (C++) host library: BVH build, OBJ parser

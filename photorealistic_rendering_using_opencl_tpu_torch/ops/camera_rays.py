@@ -110,3 +110,9 @@ def generate_rays(cam: dict, width: int, height: int,
                          torch.broadcast_to(cam["position"], aperture.shape))
     direction = normalize(point_on_image - origin)
     return origin, direction
+
+
+def sample_time(u, shutter_open: float = 0.0, shutter_close: float = 1.0):
+    """A ray's time in the shutter interval: the reference's dormant
+    motion-blur hook (nothing consumes a ray's time there either)."""
+    return shutter_open + (shutter_close - shutter_open) * u

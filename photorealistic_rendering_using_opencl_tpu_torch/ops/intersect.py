@@ -39,6 +39,7 @@ import torch
 from photorealistic_rendering_using_opencl_tpu_torch.ops import bvh_walk, mesh_brute
 from photorealistic_rendering_using_opencl_tpu_torch.ops.math import (
     EPS, RAY_INF, copysign, cross, fetch_float_rows, fma32, normalize,
+    sqrt_rn,
 )
 from photorealistic_rendering_using_opencl_tpu_torch.scene.types import (
     BOX, DIEL, QUAD, ROUGH_DIEL, SceneConfig, SceneData, SDF, SDF_BOX,
@@ -146,13 +147,6 @@ def _sum3(x):
     return (x[..., 0] + x[..., 1]) + x[..., 2]
 
 
-def _sqrt(x):
-    """A correctly rounded float32 sqrt (through float64): the card's
-    sqrtf is, PyTorch's vectorised CPU sqrt is not (one input in ~140 is
-    a last bit off), and ``_sdf_grad`` would magnify that bit."""
-    return torch.sqrt(x.double()).float()
-
-
 def _norm(x):
     """sqrt(x0^2 + x1^2 + x2^2): the reference's 2-norm, with a zero
     derivative at the zero vector.  The reference's sqrt has an infinite
@@ -162,7 +156,7 @@ def _norm(x):
     value is the reference's bit for bit."""
     s = _sum3(x * x)
     zero = s <= 0.0
-    return torch.where(zero, 0.0, _sqrt(torch.where(zero, 1.0, s)))
+    return torch.where(zero, 0.0, sqrt_rn(torch.where(zero, 1.0, s)))
 
 
 def sd_primitive(geom_type, center_rel, params):
@@ -182,13 +176,13 @@ def sd_primitive(geom_type, center_rel, params):
              + _norm(torch.clamp(q, min=0.0)))
     d_round = _norm(torch.clamp(q, min=0.0)) - params[..., 3]
     d_plane = _sum3(p * params[..., :3]) + params[..., 3]
-    len_xz = _sqrt(torch.clamp(p[..., 0] * p[..., 0]
-                               + p[..., 2] * p[..., 2], min=1e-30))
+    len_xz = sqrt_rn(torch.clamp(p[..., 0] * p[..., 0]
+                                 + p[..., 2] * p[..., 2], min=1e-30))
     d_cyl = torch.maximum(len_xz - params[..., 0],
                           torch.abs(p[..., 1]) - params[..., 1])
     ring = len_xz - params[..., 0]
-    d_torus = _sqrt(torch.clamp(ring * ring + p[..., 1] * p[..., 1],
-                                min=1e-30)) - params[..., 1]
+    d_torus = sqrt_rn(torch.clamp(ring * ring + p[..., 1] * p[..., 1],
+                                  min=1e-30)) - params[..., 1]
     d = torch.where((geom_type & SDF_TORUS) != 0, d_torus, torch.inf)
     for bit, dist in ((SDF_CYLINDER, d_cyl), (SDF_PLANE, d_plane),
                       (SDF_ROUND_BOX, d_round), (SDF_BOX, d_box),

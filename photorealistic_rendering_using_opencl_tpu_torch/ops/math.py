@@ -59,6 +59,14 @@ def normalize(a: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return a * torch.reciprocal(torch.sqrt(torch.clamp(dot3(a, a), min=eps)))
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """A correctly rounded float32 sqrt (through float64).  The card's
+    sqrtf is one; PyTorch's vectorised CPU sqrt is not (one input in ~160
+    is a last bit off), which the SDF normals' central differences would
+    magnify ~1e3."""
+    return torch.sqrt(x.double()).float()
+
+
 def safe_sqrt(x: torch.Tensor) -> torch.Tensor:
     """sqrt clamped at zero (double-where form, NaN-free under autograd)."""
     neg = x <= 0.0

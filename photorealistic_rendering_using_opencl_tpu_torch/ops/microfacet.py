@@ -1,4 +1,5 @@
-"""Microfacet distributions: Beckmann / Phong / GGX (D, G1, G, pdf, sample).
+"""Microfacet distributions: Beckmann / Phong / GGX (D, G1, G, pdf, sample),
+and the Blinn NDF (``blinn_d``, ``blinn_sample``) that nothing calls.
 
 Port of ``photorealistic_rendering_using_opencl_tpu/ops/microfacet.py``:
 the distribution id is a per-ray bitmask and all three closed forms are
@@ -9,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from photorealistic_rendering_using_opencl_tpu_torch.ops.math import (
-    INV_PI, INV_TWO_PI, TWO_PI, safe_sqrt,
+    INV_PI, INV_TWO_PI, TWO_PI, safe_sqrt, sqrt_rn,
 )
 from photorealistic_rendering_using_opencl_tpu_torch.scene.types import (
     BECKMANN, PHONG,
@@ -84,3 +85,21 @@ def sample(dist, alpha, u1, u2):
     r = safe_sqrt(1.0 - cos_theta * cos_theta)
     return torch.stack([torch.cos(phi) * r, torch.sin(phi) * r, cos_theta],
                        dim=-1)
+
+
+# Blinn NDF: dead in the reference (nothing includes it), ported for
+# parity with the JAX package
+
+def blinn_d(cos_nh, alpha):
+    """(a+2) max(0, n.wh)^a / 2pi."""
+    return (alpha + 2.0) * torch.pow(torch.clamp(cos_nh, min=0.0),
+                                     alpha) * INV_TWO_PI
+
+
+def blinn_sample(u1, u2, alpha):
+    """A unit half-vector about +z with cos theta = u^(1/(a+1))."""
+    phi = TWO_PI * u1
+    cos_t = torch.pow(u2, 1.0 / (alpha + 1.0))
+    sin_t = sqrt_rn(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    return torch.stack([torch.cos(phi) * sin_t, torch.sin(phi) * sin_t,
+                        cos_t], dim=-1)

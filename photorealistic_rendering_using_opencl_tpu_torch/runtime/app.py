@@ -14,18 +14,22 @@ host; the interactive preview does the same.
 
 ``-hdr`` reads an equirect Radiance map (``utils.image.read_hdr``) that
 lights the scene where rays miss, importance-sampled at every vertex.
-``--sharded`` with more than one card is a later ROADMAP item (M15) and
-raises ``NotImplementedError`` before any render; with one card the render
-is unsharded, as in the reference.  Interactive mode is a terminal shell with the reference's key
-bindings and mouse-equivalent commands; a camera edit resets the
-accumulation.
+``--sharded`` renders the frame by ``parallel.render.render_sharded`` (the
+path-regeneration loop, each rank its pixels) when there is more than one
+rank: under ``torchrun`` every rank joins the group and rank 0 reports and
+exports; in one process with several cards it spawns a rank a card (NCCL).
+With one device the render is unsharded, as in the reference.
+Interactive mode is a terminal shell with the reference's key bindings and
+mouse-equivalent commands; a camera edit resets the accumulation.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import select
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -33,6 +37,8 @@ import torch
 
 from photorealistic_rendering_using_opencl_tpu_torch.models import pathtracer
 from photorealistic_rendering_using_opencl_tpu_torch.ops.tonemap import tonemap
+from photorealistic_rendering_using_opencl_tpu_torch.parallel import distributed
+from photorealistic_rendering_using_opencl_tpu_torch.parallel.render import render_sharded
 from photorealistic_rendering_using_opencl_tpu_torch.runtime import terminal
 from photorealistic_rendering_using_opencl_tpu_torch.runtime.camera import (
     KEY_BINDINGS, InteractiveCamera,
@@ -85,9 +91,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "only when stdout is a tty)")
     p.add_argument("--no-preview", dest="preview", action="store_false")
     p.add_argument("--sharded", action="store_true",
-                   help="shard pixels over all visible cards (ROADMAP M15: "
-                        "raises with more than one card; one card renders "
-                        "unsharded)")
+                   help="shard pixels over the ranks of torchrun, or over "
+                        "every visible card (a rank each, NCCL); one device "
+                        "renders unsharded")
     p.add_argument("--phase", default="isotropic",
                    choices=("isotropic", "hg", "rayleigh"))
     p.add_argument("--pick-random-light", action="store_true",
@@ -102,15 +108,6 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device: 'cuda' (the card, default) or "
                         "'cpu'; never falls back")
     return p
-
-
-def _check_ported(args, device: torch.device) -> None:
-    """Raise for flags whose feature is a later ROADMAP item."""
-    if (args.sharded and device.type == "cuda"
-            and torch.cuda.device_count() > 1):
-        raise NotImplementedError(
-            f"--sharded over {torch.cuda.device_count()} cards is ROADMAP "
-            "M15 (with one card the render runs unsharded)")
 
 
 def _load(args):
@@ -203,6 +200,61 @@ def run_batch(args) -> int:
         save_checkpoint(args.checkpoint, state)
     img, alpha = pathtracer.progressive_image(state)
     _export(args.output, img, alpha if args.alpha else None, args.encoder)
+    return 0
+
+
+def _ranks(args, device: torch.device) -> int:
+    """How many ranks ``--sharded`` renders over: torchrun's world size,
+    else one a card; 1 means the unsharded render."""
+    if not args.sharded:
+        return 1
+    if "WORLD_SIZE" in os.environ:
+        return int(os.environ["WORLD_SIZE"])
+    if device.type == "cuda" and device.index is None:
+        return torch.cuda.device_count()
+    return 1
+
+
+def run_sharded(args) -> int:
+    """This rank's part of ``--sharded``: join the group, render its pixels
+    (``render_sharded``, which gathers the frame); rank 0 reports and
+    exports."""
+    distributed.initialize(device=args.device)
+    try:
+        dev = distributed.rank_device(args.device)
+        args = argparse.Namespace(**{**vars(args), "device": str(dev)})
+        cfg, scene = _load(args)
+        W, H = args.width, args.height
+        cam = InteractiveCamera(resolution=(W, H)).build_render_camera().pytree(dev)
+        rank, world = distributed.rank_world()
+        if rank == 0:
+            print(f"sharding {W}x{H} over {world} ranks "
+                  f"({torch.distributed.get_backend()})")
+        t0 = time.perf_counter()
+        img, alpha = render_sharded(cfg, scene, cam, W, H, args.spp,
+                                    seed=args.seed)
+        _sync(dev)
+        if rank == 0:
+            _report(W, H, args.spp, time.perf_counter() - t0, cfg)
+            _export(args.output, img, alpha if args.alpha else None,
+                    args.encoder)
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def _spawned_rank(rank: int, world: int, init: str, args) -> None:
+    distributed.initialize(init, world, rank, device=args.device)
+    with torch.no_grad():
+        run_sharded(args)
+
+
+def spawn_sharded(args, world: int) -> int:
+    """``--sharded`` in one process with ``world`` cards: a rank a card."""
+    with tempfile.TemporaryDirectory() as d:
+        torch.multiprocessing.spawn(
+            _spawned_rank, nprocs=world,
+            args=(world, "file://" + os.path.join(d, "store"), args))
     return 0
 
 
@@ -326,8 +378,16 @@ def main(argv=None) -> int:
     except RuntimeError as e:
         print(f"{PROG}: {e}", file=sys.stderr)
         return 1
-    _check_ported(args, dev)
+    ranks = _ranks(args, dev)
+    if ranks > 1 and (args.aov or args.interactive):
+        print(f"{PROG}: --sharded renders a batch frame; --aov and "
+              "--interactive run in one process", file=sys.stderr)
+        return 1
     with torch.no_grad():
+        if ranks > 1:
+            if "WORLD_SIZE" in os.environ:
+                return run_sharded(args)
+            return spawn_sharded(args, ranks)
         if args.interactive:
             return run_interactive(args)
         return run_batch(args)

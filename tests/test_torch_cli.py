@@ -153,8 +153,9 @@ def test_cli_later_roadmap_flags_raise(tmp_path, monkeypatch):
     """``-hdr`` (ROADMAP M11, ported): the CLI lights the scene with an
     equirect map it reads from a .hdr file, and its PNG is ``render``'s
     image of the same scene and map (``while``, the progressive step's
-    method) through the same export; ``--sharded`` over more than one card
-    is still M15.  (The name is from when both raised.)"""
+    method) through the same export; ``--sharded`` (M15, ported) renders
+    over torchrun's ranks or a rank a card, and unsharded on one device.
+    (The name is from when both raised.)"""
     rng = np.random.default_rng(4)
     env = rng.uniform(0.0, 3.0, (8, 16, 3)).astype(np.float32)
     sky = str(tmp_path / "sky.hdr")
@@ -173,12 +174,23 @@ def test_cli_later_roadmap_flags_raise(tmp_path, monkeypatch):
     app._export(want, img, None, 0)
     assert open(out, "rb").read() == open(want, "rb").read()
     args = types.SimpleNamespace(hdr=None, sharded=True)
-    app._check_ported(args, torch.device("cpu"))  # one device: unsharded
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    assert app._ranks(args, torch.device("cpu")) == 1  # one device: unsharded
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    app._check_ported(args, torch.device("cuda"))
+    assert app._ranks(args, torch.device("cuda")) == 1
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="M15"):
-        app._check_ported(args, torch.device("cuda"))
+    assert app._ranks(args, torch.device("cuda")) == 2  # a rank a card
+    assert app._ranks(args, torch.device("cuda:1")) == 1
+    monkeypatch.setenv("WORLD_SIZE", "3")  # torchrun's ranks
+    assert app._ranks(args, torch.device("cpu")) == 3
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    assert app._ranks(args, torch.device("cuda")) == 1
+    # across ranks only the batch frame is sharded
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    for extra in (["--aov", "normal"], ["--interactive"]):
+        assert app.main(ARGS + ["--device", "cpu", "--sharded", *extra]) == 1
+    assert app._ranks(types.SimpleNamespace(sharded=False),
+                      torch.device("cuda")) == 1
 
 
 def test_cli_sharded_on_one_device_renders_unsharded(tmp_path):

@@ -1115,3 +1115,78 @@ def test_w1_edge_batch_matches_twin(cuda, edge):
         (batches, torch.cuda.Stream(cuda) if side else None)], problems)
     assert problems == []
     assert [sum(r[2].values()) for r in runs] == [0] * len(batches)
+
+
+def _sharded_cli_and_want(dev, tmp_path, w, h, spp, seed, launcher):
+    """The PNG of ``--sharded`` run by ``launcher`` (the command before the
+    CLI's flags), and the export of the single-process ``trace_regen``
+    frame on ``dev`` -> (stdout, the two files' bytes)."""
+    import subprocess
+    import sys
+
+    from photorealistic_rendering_using_opencl_tpu_torch.runtime import app
+    from photorealistic_rendering_using_opencl_tpu_torch.runtime.camera import (
+        InteractiveCamera,
+    )
+    out = str(tmp_path / "sharded.png")
+    r = subprocess.run(
+        [sys.executable, *launcher, "-m", app.PROG, "-scene",
+         "scenes/cornell_hi.json", "-width", str(w), "-height", str(h),
+         "-spp", str(spp), "--seed", str(seed), "--sharded", "-o", out],
+        capture_output=True, text=True, timeout=600, cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=REPO))
+    assert r.returncode == 0, (r.stdout[-2000:], r.stderr[-2000:])
+    cfg, sc = load_scene(os.path.join(REPO, "scenes/cornell_hi.json"),
+                         device=dev)
+    cam = InteractiveCamera(resolution=(w, h)).build_render_camera().pytree(dev)
+    px, py = pathtracer.pixel_grid(w, h, dev)
+    with torch.no_grad():
+        rad, _ = pathtracer.trace_regen(cfg, sc, cam, w, h, spp, px, py, seed)
+    want = str(tmp_path / "want.png")
+    app._export(want, rad.reshape(h, w, 3), None, 0)
+    return r.stdout, open(out, "rb").read(), open(want, "rb").read()
+
+
+@pytest.mark.cuda
+def test_sharded_cli_under_torchrun_shares_one_card(cuda, tmp_path):
+    """``--sharded`` under torchrun with 2 ranks on the card: they share
+    cuda:0 over gloo (NCCL refuses two ranks on one card), the shards go
+    through host memory, and rank 0's PNG is byte for byte the export of
+    the single-process ``trace_regen`` frame."""
+    stdout, got, want = _sharded_cli_and_want(
+        cuda, tmp_path, 40, 30, 2, 3,
+        ["-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+         "2"])
+    if torch.cuda.device_count() == 1:
+        assert "sharding 40x30 over 2 ranks (gloo)" in stdout
+    assert got == want
+
+
+@pytest.mark.cuda
+def test_sharded_cli_spawns_a_rank_a_card(cuda, tmp_path):
+    """``--sharded`` in one process on a machine with two or more cards
+    spawns a rank a card over NCCL, and its PNG is byte for byte the export
+    of the single-process ``trace_regen`` frame on one card.  Skips on a
+    machine with one card."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two cards")
+    stdout, got, want = _sharded_cli_and_want(cuda, tmp_path, 40, 30, 2, 3,
+                                              [])
+    assert f"sharding 40x30 over {n} ranks (nccl)" in stdout
+    assert got == want
+
+
+@pytest.mark.cuda
+def test_dryrun_multichip_over_nccl(cuda, capfd):
+    """``parallel.dryrun.dryrun_multichip`` over two cards: a rank a card,
+    NCCL, a sharded render and one train step.  Skips on a machine with one
+    card."""
+    from photorealistic_rendering_using_opencl_tpu_torch.parallel.dryrun import (
+        dryrun_multichip,
+    )
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    dryrun_multichip(2)
+    out = capfd.readouterr().out
+    assert "dryrun_multichip(2): loss=" in out and "backend=nccl" in out
