@@ -182,6 +182,19 @@ drove before the walk was ported; phases 21-24 take the card's own pick.
      frame bitwise (a)'s; (c) their train step's updated colour and
      medium_sigma_t bitwise the 1-rank update, the losses within 1e-6.  The
      two ranks share the card: their times are not a scaling number.
+ 26. trace_regen_scan(remat="segment") on cornell_hi, after an untimed
+     64^2 fwd+bwd by each mode: (a) with the card's pick (W1) at 512^2 x
+     4 spp, one fwd+bwd by remat="body" then one by "segment" over every
+     float leaf and the camera: completed == spp, the walk launched once
+     an iteration in each forward and never in either backward (the
+     segment's dispatches replayed from its HitTape), the images and
+     every gradient leaf bitwise equal, seconds and peak memory of each;
+     (b) the same with K1 pinned (PRT_MESH_ACCEL=brute) at 256^2 x 2 spp;
+     (c) the north star by tools.northstar.value_and_grads at 1024^2 x 4
+     spp, its budget calibrated over the frame, by 4 bands and direct,
+     once each: seconds, peak memory, W1 launches, completed == spp, the
+     bands' summed gradients held to the direct ones
+     (northstar.check_tiled).
 
 Prints the kernels' JSON line (with each kernel's bound: the larger of its
 bytes over 3.35 TB/s and its operations over 67 TFLOP/s, the H100 SXM's
@@ -221,6 +234,14 @@ no result line.
     python3 chip_smoke.py --sharded
 
 runs phases 1-2 and 25 alone; no result line.
+
+    python3 chip_smoke.py --regen-scan
+
+runs phases 1-2 and 26, then the two tools at their defaults, each as a
+process of its own (python -m ...tools.regen_scan_probe: forward only and
+fwd+bwd by remat x SCAN_CHUNK, a child process a variant; python -m
+...tools.northstar: 1024^2 x 4 spp, tiled x 4 and direct, a cold run and
+the best of 2 more); no result line.
 
     python3 chip_smoke.py --bdpt-bound
 
@@ -5141,7 +5162,7 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def _shard_scene(dev):
+def _cornell_hi(dev):
     from photorealistic_rendering_using_opencl_tpu_torch.scene.loader import load_scene
     return load_scene(os.path.join(REPO, "scenes/cornell_hi.json"),
                       models_dir=os.path.join(REPO, "scenes/assets"),
@@ -5200,7 +5221,7 @@ def _sharded_rank(rank, world, init, out_dir, device="cuda"):
     distributed.initialize(init, world, rank, device=device)
     try:
         dev = distributed.rank_device(device)
-        cfg, scene = _shard_scene(dev)
+        cfg, scene = _cornell_hi(dev)
         out, (img, alpha), (color, sigma) = _shard_work(dev, cfg, scene)
         out.update(backend=torch.distributed.get_backend(),
                    mesh_accel=cfg.mesh_accel)
@@ -5234,7 +5255,7 @@ def phase_sharded(dev, gpu_line):
     )
     from photorealistic_rendering_using_opencl_tpu_torch.parallel import distributed
 
-    cfg, scene = _shard_scene(dev)
+    cfg, scene = _cornell_hi(dev)
     log(f"[25] several ranks: cornell_hi ({cfg.n_triangles} triangles, "
         f"mesh_accel={cfg.mesh_accel!r}), {SHARD_SIDE}^2 x {SHARD_SPP} spp "
         f"sharded; train step {TRAIN_SIDE}^2 x 1 spp")
@@ -5312,6 +5333,210 @@ def phase_sharded(dev, gpu_line):
     return dict(one_rank=dict(backend=backend, plain_trace_regen_s=plain_s,
                               plain_W1=plain_w1, **one),
                 ranks=many, ranks_wall_s=wall)
+
+
+# ---------------------------------------------------------------------------
+# phase 26: trace_regen_scan(remat="segment") and the north star
+# ---------------------------------------------------------------------------
+
+# (a) body against segment with the card's pick, (b) with K1 pinned, (c)
+# the north star by tools.northstar (REMAT_SPP etc. set the work; widths
+# are never cut)
+REMAT_SIDE, REMAT_SPP = 512, 4
+REMAT_K1_SIDE, REMAT_K1_SPP = 256, 2
+NORTH_SIDE, NORTH_SPP, NORTH_TILES = 1024, 4, 4
+
+
+def _reset_peak(dev):
+    import torch
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _peak_gib(dev):
+    import torch
+    if dev.type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated(dev) / 2**30
+
+
+def remat_fwd_bwd(cfg, scene, cam, w, spp, n_iters, remat, seed=3):
+    """One fwd+bwd of mean(image) through trace_regen_scan(remat=...) over
+    every float leaf of the scene and the camera -> the image, alpha,
+    completed, the gradients by leaf, the mesh kernels' launches in each
+    pass, seconds (forward and whole) and peak memory."""
+    import torch
+    from photorealistic_rendering_using_opencl_tpu_torch.models import pathtracer
+    dev = scene.device
+    sc, camg, params = _grad_leaves(scene, cam)
+    leaves = {**{f"scene.{k}": v for k, v in params.items()},
+              **{f"camera.{k}": v for k, v in camg.items()}}
+    px, py = pathtracer.pixel_grid(w, w, dev)
+    _reset_peak(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    acc, alpha, done = pathtracer.trace_regen_scan(
+        cfg, sc, camg, w, w, spp, px, py, seed, n_iters, remat=remat)
+    loss = acc.mean()
+    _sync(dev)
+    t_fwd = time.perf_counter() - t0
+    fwd = read_counts()
+    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    total = read_counts()
+    return dict(img=acc.detach(), alpha=alpha.detach(), completed=int(done),
+                grads={k: torch.zeros_like(x) if g is None else g
+                       for (k, x), g in zip(leaves.items(), grads)},
+                forward={k: fwd[k] for k in ("K1", "W1")},
+                backward={k: total[k] - fwd[k] for k in ("K1", "W1")},
+                seconds=secs, forward_s=t_fwd, peak_gib=_peak_gib(dev))
+
+
+def remat_pair(label, cfg, scene, cam, w, spp, gpu_line, seed=3):
+    """One fwd+bwd by remat="body", then one by "segment": completed ==
+    spp, the mesh kernel once an iteration in the forward and never in
+    the backward, the images and every gradient leaf bitwise equal."""
+    import torch
+    from photorealistic_rendering_using_opencl_tpu_torch.models import pathtracer
+    n_iters = pathtracer.calibrate_regen_iters(cfg, scene, cam, w, w, spp,
+                                               seed=seed)
+    iters = pathtracer.scan_iterations(n_iters)
+    mk = "W1" if cfg.mesh_accel == "bvh" else "K1"
+    runs = {}
+    for remat in ("body", "segment"):
+        r = runs[remat] = remat_fwd_bwd(cfg, scene, cam, w, spp, n_iters,
+                                        remat, seed)
+        if r["completed"] != spp:
+            fail(f"{label} {remat}: completed {r['completed']} of {spp}")
+        if r["forward"][mk] != iters or any(r["backward"].values()):
+            fail(f"{label} {remat}: mesh launches forward {r['forward']}, "
+                 f"backward {r['backward']}; want {mk} {iters} and none")
+        bad = [k for k, g in r["grads"].items()
+               if not bool(torch.isfinite(g).all())]
+        if bad or float(r["grads"]["scene.color"].abs().max()) == 0.0:
+            fail(f"{label} {remat}: gradients non-finite {bad} or zero colour")
+    body, seg = runs["body"], runs["segment"]
+    if not (same_bits(seg["img"], body["img"])
+            and same_bits(seg["alpha"], body["alpha"])):
+        fail(f"{label}: segment's image is not bitwise body's")
+    parted = {k: float((seg["grads"][k] - g).abs().max())
+              for k, g in body["grads"].items()
+              if not same_bits(seg["grads"][k], g)}
+    if parted:
+        fail(f"{label}: segment's gradients are not bitwise body's: {parted}")
+    out = dict(mesh_accel=cfg.mesh_accel, iterations=n_iters,
+               scan_iterations=iters, width=w, spp=spp)
+    for remat, r in runs.items():
+        out[remat] = {k: r[k] for k in ("seconds", "forward_s", "peak_gib",
+                                         "forward", "backward")}
+    log(f"  {label}: {w}^2 x {spp} spp fwd+bwd, {n_iters} iterations "
+        f"({iters} run), {cfg.mesh_accel}: body {body['seconds']:.3f} s "
+        f"(forward {body['forward_s']:.3f}), peak {body['peak_gib']} GiB; "
+        f"segment {seg['seconds']:.3f} s (forward {seg['forward_s']:.3f}), "
+        f"peak {seg['peak_gib']} GiB; {mk} {iters} in each forward, none in "
+        f"either backward; image and {len(body['grads'])} gradient leaves "
+        f"bitwise; on {gpu_line}")
+    return out
+
+
+def phase_remat(dev, gpu_line, side=REMAT_SIDE, spp=REMAT_SPP,
+                k1_side=REMAT_K1_SIDE, k1_spp=REMAT_K1_SPP,
+                north=(NORTH_SIDE, NORTH_SPP, NORTH_TILES)):
+    """Phase 26: (a) body against segment on cornell_hi with the card's
+    pick; (b) the same with K1 pinned; (c) tools.northstar's value and
+    gradients on cornell_hi, by NORTH_TILES bands and direct, once each,
+    the bands' sum held to the direct gradients (northstar.check_tiled)."""
+    from photorealistic_rendering_using_opencl_tpu_torch.models import (
+        integrator, pathtracer,
+    )
+    from photorealistic_rendering_using_opencl_tpu_torch.ops.camera_rays import (
+        default_camera,
+    )
+    from photorealistic_rendering_using_opencl_tpu_torch.tools import northstar
+    log("[26] trace_regen_scan(remat='segment') and the north star, "
+        "cornell_hi")
+    cfg, scene = _cornell_hi(dev)
+    # a first fwd+bwd pays one-time costs (lazy loading of the backward's
+    # CUDA kernels): one small one by each mode first, untimed
+    warm = max(side // 8, 8)
+    for remat in ("body", "segment"):
+        remat_fwd_bwd(cfg, scene, default_camera(warm, warm).pytree(dev),
+                      warm, 1, 3 * integrator.SCAN_CHUNK, remat)
+    out = {"a": remat_pair("(a) body against segment", cfg, scene,
+                           default_camera(side, side).pytree(dev), side, spp,
+                           gpu_line)}
+    os.environ["PRT_MESH_ACCEL"] = "brute"
+    try:
+        cfg_b, scene_b = _cornell_hi(dev)
+    finally:
+        del os.environ["PRT_MESH_ACCEL"]
+    out["b"] = remat_pair("(b) K1 pinned", cfg_b, scene_b,
+                          default_camera(k1_side, k1_side).pytree(dev),
+                          k1_side, k1_spp, gpu_line)
+    del cfg_b, scene_b
+    w, nspp, tiles = north
+    cam = default_camera(w, w).pytree(dev)
+    n_iters = northstar.calibrate(cfg, scene, cam, w, nspp)
+    mk = "W1" if cfg.mesh_accel == "bvh" else "K1"
+    res, c = {}, {"mesh_accel": cfg.mesh_accel, "iterations": n_iters}
+    for label, t in ((f"tiled x{tiles}", tiles), ("direct", 1)):
+        _reset_peak(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        res[label] = northstar.value_and_grads(cfg, scene, cam, w, nspp,
+                                               n_iters, t)
+        _sync(dev)
+        r = res[label]
+        c[label] = dict(seconds=time.perf_counter() - t0,
+                        peak_gib=_peak_gib(dev), completed=r["completed"],
+                        launches=r["launches"], loss=r["loss"])
+        if min(r["completed"]) != nspp:
+            fail(f"(c) north star {label}: completed {r['completed']}")
+        if (r["launches"]["forward"][mk]
+                != t * pathtracer.scan_iterations(n_iters)
+                or any(r["launches"]["backward"].values())):
+            fail(f"(c) north star {label}: launches {r['launches']}")
+        log(f"  (c) north star {label}: {w}^2 x {nspp} spp fwd+bwd, "
+            f"{n_iters} iterations: {c[label]['seconds']:.3f} s, peak "
+            f"{c[label]['peak_gib']} GiB, {mk} {r['launches']['forward'][mk]} "
+            f"forward / {r['launches']['backward'][mk]} backward, completed "
+            f"{r['completed']}; on {gpu_line}")
+    gap = northstar.tiled_gap(res[f"tiled x{tiles}"], res["direct"])
+    worst = max(gap["grads"], key=gap["grads"].get)
+    c["tiled_vs_direct"] = gap
+    log(f"  (c) the bands' sum against direct: loss {gap['loss']:.3g}, "
+        f"largest leaf gap {gap['grads'][worst]:.3g} of its largest entry "
+        f"({worst}"
+        + (f"; {gap['camera'][worst]:.3g} of the camera's"
+           if worst in gap["camera"] else "")
+        + f"; bounds {northstar.TILED_LOSS_REL}, {northstar.TILED_GRAD_REL})")
+    try:
+        northstar.check_tiled(gap)
+    except RuntimeError as e:
+        fail(f"(c) {e}")
+    out["c"] = c
+    return out
+
+
+def run_tool(name, *args, timeout=900):
+    """``python -m`` one of the port's tools at its defaults (a process of
+    its own, so its first run is a fresh process's), its lines logged ->
+    the JSON object of its last line."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", f"{PKG}.tools.{name}", *args],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=timeout, check=False)
+    lines = res.stdout.splitlines()
+    for line in lines[:-1] if res.returncode == 0 else lines:
+        log(f"  {name}: {line}")
+    if res.returncode:
+        log(res.stderr[-4000:])
+        fail(f"tools.{name} exited {res.returncode}")
+    out = json.loads(res.stdout.splitlines()[-1])
+    out["process_s"] = time.perf_counter() - t0
+    return out
 
 
 def phase_k1_sweep(dev, pops):
@@ -5406,13 +5631,14 @@ def main(argv=None) -> int:
     walk = argv == ["--walk"]
     sharded = argv == ["--sharded"]
     bdpt_bound = argv == ["--bdpt-bound"]
+    regen_scan = argv == ["--regen-scan"]
     times = argv[:1] == ["--kernel-times"] and (
         len(argv) == 1 or (len(argv) == 3 and argv[1] == "--port-root"))
     if argv and not (kernels_only or sweep or census or times or paths
-                     or walk or bdpt_bound or sharded):
+                     or walk or bdpt_bound or sharded or regen_scan):
         fail(f"unknown arguments {argv}: none, --kernels-only, --k1-sweep, "
-             "--op-census, --paths, --walk, --sharded, --bdpt-bound or "
-             "--kernel-times [--port-root DIR]")
+             "--op-census, --paths, --walk, --sharded, --bdpt-bound, "
+             "--regen-scan or --kernel-times [--port-root DIR]")
     root = os.path.abspath(argv[2]) if times and len(argv) == 3 else REPO
     if not os.path.isdir(os.path.join(root, PKG)):
         fail(f"the port package {PKG}/ is not in {root}")
@@ -5483,6 +5709,17 @@ def main(argv=None) -> int:
         log("sharded: " + json.dumps(phase_sharded(dev, gpu_line)))
         done(25)
         log("partial run (--sharded: phases 1-2 and 25); no result line")
+        return 0
+    if regen_scan:
+        log("remat: " + json.dumps(phase_remat(dev, gpu_line)))
+        done(26)
+        log("[26b] tools.regen_scan_probe at its defaults")
+        log("regen_scan_probe: " + json.dumps(run_tool("regen_scan_probe")))
+        log("[26c] tools.northstar at its defaults")
+        log("northstar: " + json.dumps(run_tool("northstar")))
+        log(f"partial run (--regen-scan: phases 1-2, 26 and the two tools), "
+            f"{time.perf_counter() - t_start:.1f} s after the build; no "
+            "result line")
         return 0
     if walk:
         wp = walk_phases(None)
@@ -5557,6 +5794,8 @@ def main(argv=None) -> int:
         wp["w1"], wp["crossover"], wp["default"], wp["bdpt"])
     shard = phase_sharded(dev, gpu_line)
     done(25)
+    remat = phase_remat(dev, gpu_line)
+    done(26)
 
     cam = k1_times["camera"]
     k1_paths = {"forward 512^2 x 8 spp (regen)": launches["K1"],
@@ -5580,7 +5819,10 @@ def main(argv=None) -> int:
                    r["fwd_bwd"]["K1"] for k, r in med.items()
                    if "fwd_bwd" in r},
                 "BDPT cornell_hi 256^2 x 2 spp (brute)":
-                    bdpt["cornell_hi_brute"]["K1"]}
+                    bdpt["cornell_hi_brute"]["K1"],
+                **{f"remat={m} fwd+bwd {REMAT_K1_SIDE}^2 x {REMAT_K1_SPP} "
+                   "spp (regen_scan, brute)": remat["b"][m]["forward"]["K1"]
+                   for m in ("body", "segment")}}
     w1_paths = {"default forward 512^2 x 8 spp (regen)":
                     default["forward"]["W1"],
                 "default fwd+bwd 512^2 x 4 spp (regen_scan)":
@@ -5592,7 +5834,13 @@ def main(argv=None) -> int:
                 f"sharded {SHARD_SIDE}^2 x {SHARD_SPP} spp, 1 rank "
                 "(render_sharded)": shard["one_rank"]["render_W1"],
                 f"train step {TRAIN_SIDE}^2 x 1 spp, 1 rank (scan fwd+bwd)":
-                    shard["one_rank"]["step_W1"]}
+                    shard["one_rank"]["step_W1"],
+                **{f"remat={m} fwd+bwd {REMAT_SIDE}^2 x {REMAT_SPP} spp "
+                   "(regen_scan)": remat["a"][m]["forward"]["W1"]
+                   for m in ("body", "segment")},
+                **{f"north star {k} {NORTH_SIDE}^2 x {NORTH_SPP} spp "
+                   "fwd+bwd": remat["c"][k]["launches"]["forward"]["W1"]
+                   for k in (f"tiled x{NORTH_TILES}", "direct")}}
     w1_cam = w1_times["camera"]
     k2_paths = {"forward 512^2 x 8 spp (regen)": launches["K2"],
                 "forward 512^2 x 8 spp (scan)": sw["scan"]["k2"],
@@ -5744,6 +5992,7 @@ def main(argv=None) -> int:
     log("default path: " + json.dumps(default))
     log("BDPT: " + json.dumps(bdpt))
     log("sharded: " + json.dumps(shard))
+    log("remat: " + json.dumps(remat))
     log(f"total {time.perf_counter() - t_start:.1f} s after the build")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu_line, flush=True)

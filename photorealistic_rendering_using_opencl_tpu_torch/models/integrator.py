@@ -24,6 +24,7 @@ BSDF 3, roulette 1), so every stream is the reference's.
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import torch
@@ -52,8 +53,10 @@ DIMS_PER_BOUNCE = 16
 
 # iterations per chunk of the differentiable regeneration loop: a budget
 # above one chunk is rounded up to a whole number of chunks, as the
-# reference's nested scan does (its sweep chose 8)
-SCAN_CHUNK = 8
+# reference's nested scan does, and remat="segment" checkpoints a chunk at
+# a time.  Read once at import from PRT_SCAN_CHUNK, the reference's knob
+# (its sweep chose 8; tools/regen_scan_probe.py sweeps it)
+SCAN_CHUNK = int(os.environ.get("PRT_SCAN_CHUNK", "8"))
 
 
 class PathState(NamedTuple):

@@ -21,14 +21,18 @@ An iteration is two halves.  ``_regen_shade`` reattaches the previous
 dispatch's winners (``intersect.finish_hit``), banks its NEE light, shades
 and regenerates: plain tensor code, differentiable.  ``_regen_dispatch``
 is the merged intersection (``intersect.intersect_and_shadow_detached``,
-the mesh kernel K1 included): detached, about ten words a lane.  The
-differentiable loop checkpoints each ``_regen_shade`` on its own, with
-the dispatch's result as the segment's boundary, so the backward pass
-recomputes the shading and never the traversal (the reference saves its
-named "hit" records for the same reason).
+the mesh kernel included): detached, about ten words a lane.  The
+differentiable loop's default (``remat="body"``) checkpoints each
+``_regen_shade`` on its own, with the dispatch's result as the segment's
+boundary; ``remat="segment"`` checkpoints a whole chunk of iterations,
+dispatches included, and a ``HitTape`` replays the chunk's dispatch
+results in its recompute.  Either way the backward pass recomputes the
+shading and never the traversal (the reference saves its named "hit"
+records for the same reason).
 """
 from __future__ import annotations
 
+import contextlib
 import warnings
 from typing import NamedTuple
 
@@ -257,17 +261,63 @@ def _shade_regenerate(cfg: SceneConfig, scene: SceneData, cam_pytree,
 
 
 def _regen_dispatch(cfg: SceneConfig, scene: SceneData, shaded,
-                    early_exit: bool = True):
+                    early_exit: bool = True, tape: HitTape | None = None):
     """The detached half: ONE merged dispatch of the next/camera closest-hit
     rays and the NEE shadow rays.  Returns the next iteration's carry.
     ``early_exit`` lets its SDF marches stop once every lane is done (host
-    syncs; the differentiable loop passes False)."""
+    syncs; the differentiable loop passes False).  With a ``tape`` the
+    result is recorded, or replayed in a recompute."""
     state, nee, excl, cur, pending, bounce, alpha_sum = shaded
-    rec = intersect.intersect_and_shadow_detached(
-        cfg, scene, state.origin, state.direction, state.alive,
-        [(b.origin, b.direction, b.dist, b.active) for b in nee],
-        exclude_tri=excl, early_exit=early_exit)
+
+    def search():
+        return intersect.intersect_and_shadow_detached(
+            cfg, scene, state.origin, state.direction, state.alive,
+            [(b.origin, b.direction, b.dist, b.active) for b in nee],
+            exclude_tri=excl, early_exit=early_exit)
+
+    rec = search() if tape is None else tape.hits(search)
     return (state, nee, rec, cur, pending, bounce, alpha_sum)
+
+
+class HitTape:
+    """The dispatch results of one checkpointed chunk of
+    ``trace_regen_scan(remat="segment")``: the port's counterpart of the
+    reference's ``save_only_these_names("hit")``.
+
+    The mesh kernels are ctypes calls, which no selective-checkpoint policy
+    sees, so a plain checkpoint of a chunk would launch them again in the
+    backward.  Instead the chunk's forward records each iteration's
+    detached ``DetachedHits`` (``hits`` runs the search and keeps its
+    result), and each recompute replays them in order: the tape is the
+    checkpoint's recompute context, and entering it rewinds the replay.
+    When a recompute ends (early stop included) the records are freed,
+    unless the backward retains the graph, whose next backward replays
+    them again.
+    """
+
+    def __init__(self):
+        self.records: list[intersect.DetachedHits] = []
+        self._replay = None
+
+    def hits(self, search) -> intersect.DetachedHits:
+        if self._replay is None:
+            rec = search()
+            self.records.append(rec)
+            return rec
+        rec = next(self._replay, None)
+        if rec is None:
+            raise RuntimeError("HitTape: a recompute asked for more dispatch "
+                               "results than the forward recorded")
+        return rec
+
+    def __enter__(self):
+        self._replay = iter(self.records)
+        return self
+
+    def __exit__(self, *exc):
+        self._replay = None
+        if not torch._C._autograd._get_current_graph_task_keep_graph():
+            self.records.clear()
 
 
 def _bank_last_nee(carry) -> integrator.PathState:
@@ -349,38 +399,65 @@ def trace_regen_scan(cfg: SceneConfig, scene: SceneData, cam_pytree,
     size ``n_iters`` with ``calibrate_regen_iters``.  With a sufficient
     budget the result is the same estimator as ``trace_regen`` (the forward
     is bitwise equal); surplus iterations are no-ops (every lane idle; the
-    mesh kernel skips every tile).  Each iteration's differentiable half
-    runs in its own ``torch.utils.checkpoint`` segment whose boundary is
-    the detached dispatch result, so the backward pass re-runs one
-    iteration's shading at a time and never the mesh kernel: one K1 launch
-    per iteration in the forward pass, none in the backward.  After every
-    iteration the carry passes through ``integrator._sanitize_grad``.
+    mesh kernel skips every tile).  After every iteration the carry passes
+    through ``integrator._sanitize_grad``.  The mesh kernel launches once
+    per iteration in the forward pass and never in the backward, in either
+    ``remat`` mode:
 
-    ``remat`` is the reference's option; its ``"segment"`` mode (one
-    checkpoint around a whole chunk) is ROADMAP M6b and raises.
+    - ``"body"`` (the default): each iteration's differentiable half runs
+      in its own ``torch.utils.checkpoint`` segment whose boundary is the
+      detached dispatch result, so the backward re-runs one iteration's
+      shading at a time.
+    - ``"segment"``: above one ``SCAN_CHUNK`` of iterations, one segment
+      per chunk, its dispatches inside it: the autograd graph keeps one
+      carry per chunk instead of one per iteration, and a recompute
+      re-runs a whole chunk's shading at once, its dispatches replayed
+      from the chunk's ``HitTape``.  With ``n_iters <= SCAN_CHUNK`` it
+      runs as ``"body"``, as in the reference.
+
+    Both modes build the same autograd graph from the same values, so
+    their images and gradients are bitwise equal.  The reference treats
+    any ``remat`` but ``"segment"`` as ``"body"``; here another value
+    raises ``ValueError``.
 
     Returns (radiance_mean [N,3], alpha [N], completed [] int64): the
     fewest samples any lane finished, capped at ``spp``.  If the budget is
     too small, unfinished samples' partial radiance is still banked, as in
     the reference; callers check ``completed``.
     """
-    if remat != "body":
-        raise NotImplementedError(
-            f"trace_regen_scan(remat={remat!r}) is ROADMAP M6b; the port "
-            "checkpoints each iteration (remat='body')")
+    if remat not in ("body", "segment"):
+        raise ValueError(f"trace_regen_scan: unknown remat {remat!r} "
+                         "(body or segment)")
     pixel_idx = py * width + px
     n = px.shape[0]
     carry = _regen_carry0(cfg, n, px.device)
+    chunk = integrator.SCAN_CHUNK
 
     def shade(c):
         return _regen_shade(cfg, scene, cam_pytree, width, height, spp, px,
                             py, pixel_idx, seed, rng_scheme, jitter, c)
 
-    for _ in range(scan_iterations(n_iters)):
-        shaded = checkpoint(shade, carry, use_reentrant=False,
-                            preserve_rng_state=False)
-        carry = _regen_dispatch(cfg, scene, integrator._sanitize_grad(shaded),
-                                early_exit=False)
+    def run_chunk(c, tape):
+        for _ in range(chunk):
+            c = _regen_dispatch(cfg, scene,
+                                integrator._sanitize_grad(shade(c)),
+                                early_exit=False, tape=tape)
+        return c
+
+    if remat == "segment" and n_iters > chunk:
+        for _ in range(scan_iterations(n_iters) // chunk):
+            tape = HitTape()
+            carry = checkpoint(
+                run_chunk, carry, tape, use_reentrant=False,
+                preserve_rng_state=False,
+                context_fn=lambda t=tape: (contextlib.nullcontext(), t))
+    else:
+        for _ in range(scan_iterations(n_iters)):
+            shaded = checkpoint(shade, carry, use_reentrant=False,
+                                preserve_rng_state=False)
+            carry = _regen_dispatch(cfg, scene,
+                                    integrator._sanitize_grad(shaded),
+                                    early_exit=False)
     state = _bank_last_nee(carry)
     cur, alpha_sum = carry[3], carry[-1]
     completed = torch.min(torch.clamp(cur, max=spp))

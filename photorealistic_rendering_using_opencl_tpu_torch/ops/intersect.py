@@ -258,6 +258,26 @@ def sdf_normal(pos, centers, geom_type, params, obj_idx):
     return _sdf_grad(geom_type[i], pos, centers[i], params[i])
 
 
+def sdf_reattach(origin, direction, t_det, centers, geom_type, params,
+                 obj_idx):
+    """Differentiable sphere-tracing distance by one Newton step.
+
+    With f(t) = sdf(o + t d) and the detached root ``t_det``, the implicit
+    function theorem gives dt = -df / <grad f, d>: ``t_det - f /
+    stop(<grad f, d>)`` is ``t_det`` in the primal (f ~ 0 at the root) and
+    carries the first-order derivative with respect to the ray and the SDF
+    tables.  |<grad f, d>| below 1e-4 is clamped to 1e-4 with its sign, as
+    in the reference.
+    """
+    i = obj_idx.long()
+    pos = origin + direction * t_det[..., None]
+    f = sd_primitive(geom_type[i], pos - centers[i], params[i])
+    g = sdf_normal(pos, centers, geom_type, params, obj_idx)
+    dfdt = _sum3(g * direction).detach()
+    dfdt = torch.where(torch.abs(dfdt) < 1e-4, copysign(1e-4, dfdt), dfdt)
+    return t_det - f / dfdt
+
+
 # ===========================================================================
 # Triangles
 # ===========================================================================

@@ -3,6 +3,8 @@ the CPU.  There is no silent fallback: asking for the card on a machine
 without one raises."""
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 DEFAULT_DEVICE = "cuda"
@@ -17,3 +19,12 @@ def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
             f"device {str(dev)!r} requested but no CUDA device is available "
             "(pass device='cpu' to run on the CPU)")
     return dev
+
+
+def nvidia_smi_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader`` prints them (its first card)."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    return res.stdout.strip().splitlines()[0]

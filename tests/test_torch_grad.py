@@ -257,9 +257,9 @@ def test_grad_spread_of_two_cpu_implementations(record_property):
 
 
 def test_completed_and_budget():
-    """completed == spp with the calibrated budget, < spp with a short
-    one; render raises on the short budget instead of returning a partial
-    image, and wants regen_iters at all."""
+    """completed == spp with the calibrated budget (in either remat
+    mode), < spp with a short one; render raises on the short budget
+    instead of returning a partial image, and wants regen_iters at all."""
     cfg, sc = build_scene(CORNELL, device="cpu")
     cam = Camera(**_default_cam_fields(8)).pytree("cpu")
     px, py = pathtracer.pixel_grid(8, 8, "cpu")
@@ -276,9 +276,14 @@ def test_completed_and_budget():
                           method="regen_scan", regen_iters=3)
     with pytest.raises(ValueError, match="regen_iters"):
         pathtracer.render(cfg, sc, cam, 8, 8, 4, method="regen_scan")
-    with pytest.raises(NotImplementedError, match="M6b"):
+    # the reference's other remat mode completes too (tests/test_torch_remat.py
+    # holds it bitwise to body); an unknown mode raises
+    _, _, done = pathtracer.trace_regen_scan(cfg, sc, cam, 8, 8, 4, px, py,
+                                             SEED, n, remat="segment")
+    assert int(done) == 4
+    with pytest.raises(ValueError, match="remat"):
         pathtracer.trace_regen_scan(cfg, sc, cam, 8, 8, 4, px, py, SEED, n,
-                                    remat="segment")
+                                    remat="checkpoint")
     # a budget above one chunk rounds up to whole chunks, as the reference
     assert [pathtracer.scan_iterations(k) for k in (3, 8, 9, 17)] == [3, 8,
                                                                      16, 24]

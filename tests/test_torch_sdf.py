@@ -280,6 +280,67 @@ def test_reattach_of_sdf_and_box_hits_matches_reference():
         assert float(gt_.abs().max()) > 0.1, k
 
 
+def test_sdf_reattach_matches_reference():
+    """sdf_reattach (one Newton step from the marched distance) on
+    sdf_demo's SDFs: the value bitwise the un-jitted reference's on every
+    lane; d(sum t) / d(radius and size params, centres) within 1e-6 of the
+    largest entry of the un-jitted reference's, on the lanes that hit the
+    SDF sphere or the round box (the box's central differences sample its
+    core, where the reference's gradient is NaN: ROADMAP F12).  Then
+    tests/test_grad.py's analytic check: a unit sphere 3 away hit at t = 2
+    within 1e-3, dt/dr = -1 within 1e-3."""
+    c, gt, prm = _sdf_objects()
+    o, d = _rays(3000, 5)
+    limit = np.full(3000, 20.0, np.float32)
+    t, obj, hit = intersect.sdf_march(_t(o), _t(d), _t(limit), _t(c), _t(gt),
+                                      _t(prm), 128)
+    got = intersect.sdf_reattach(_t(o), _t(d), t, _t(c), _t(gt), _t(prm), obj)
+    jargs = [jnp.asarray(x) for x in (o, d, t.numpy())]
+    with jax.disable_jit():
+        want = j_int.sdf_reattach(*jargs, jnp.asarray(c), jnp.asarray(gt),
+                                  jnp.asarray(prm), jnp.asarray(obj.numpy()))
+    assert got.numpy().tobytes() == np.asarray(want).tobytes()
+
+    keep = hit & ((_t(gt)[obj.long()] & (SDF_SPHERE | SDF_ROUND_BOX)) != 0)
+    idx = torch.nonzero(keep).flatten()
+    assert len(idx) > 100
+    cg, pg = _t(c).clone().requires_grad_(), _t(prm).clone().requires_grad_()
+    got_c, got_p = torch.autograd.grad(
+        intersect.sdf_reattach(_t(o)[idx], _t(d)[idx], t[idx], cg, _t(gt), pg,
+                               obj[idx]).sum(), [cg, pg])
+    ji = idx.numpy()
+
+    def total(cc, pp):
+        return jnp.sum(j_int.sdf_reattach(
+            jargs[0][ji], jargs[1][ji], jargs[2][ji], cc, jnp.asarray(gt), pp,
+            jnp.asarray(obj.numpy()[ji])))
+
+    with jax.disable_jit():
+        want_c, want_p = jax.grad(total, argnums=(0, 1))(jnp.asarray(c),
+                                                         jnp.asarray(prm))
+    for g, w in ((got_c, want_c), (got_p, want_p)):
+        assert np.isfinite(np.asarray(w)).all()
+        _close(g, w)
+        assert float(g.abs().max()) > 1.0
+
+    def t_of_radius(r):
+        params = torch.stack([torch.stack([r, 0.0 * r, 0.0 * r, 0.0 * r])])
+        o1 = torch.tensor([[0.0, 0.0, -3.0]])
+        d1 = torch.tensor([[0.0, 0.0, 1.0]])
+        centers = torch.zeros(1, 3)
+        types = torch.tensor([SDF | SDF_SPHERE], dtype=torch.int32)
+        t_det, o_idx, _ = intersect.sdf_march(o1, d1, torch.tensor([10.0]),
+                                              centers, types, params, 256)
+        return intersect.sdf_reattach(o1, d1, t_det, centers, types, params,
+                                      o_idx)[0]
+
+    r0 = torch.tensor(1.0, requires_grad=True)
+    t_r = t_of_radius(r0)
+    assert abs(float(t_r.detach()) - 2.0) < 1e-3
+    (dt_dr,) = torch.autograd.grad(t_r, [r0])
+    assert abs(float(dt_dr) + 1.0) < 1e-3
+
+
 @pytest.mark.parametrize("kind,radius_slot", [("sphere", 0), ("box", 2),
                                               ("round_box", 3), ("torus", 1)])
 def test_reattached_distance_gradient_vs_fd(kind, radius_slot):
