@@ -103,8 +103,8 @@ order, none of them optional and none wrapped in a fallback:
      cornell_simple 512^2 x 2 spp frames by each scheme, in turns, against
      pcg4d (and 48^2 frames against the CPU).
  17. Path A (BASELINE config 3): sdf_demo.json (3 SDFs, a box, 8 bounces)
-     with icosphere_hi (81,920 triangles) as its mesh, 512^2 x 8 spp by
-     regen (profiled at 1 spp for the idle share), while and scan (each
+     with icosphere_hi (81,920 triangles) as its mesh, 512^2 x SDF_SPP (4)
+     spp by regen (profiled at 1 spp for the idle share), while and scan (each
      tonemapped, K2), all three equal; fwd+bwd regen_scan 512^2 x 4 spp
      over every float leaf (SDF params and position non-zero, K1 none in
      the backward, peak memory); one SDF march step's kernels; K1 against
@@ -115,7 +115,7 @@ order, none of them optional and none wrapped in a fallback:
  18. Path B (BASELINE config 4): cornell_media.json (homogeneous, 12
      bounces, 64 scatter events) and its height fog (tests/golden_tool.py's
      exponential medium), each with icosphere_hi, under HG and Rayleigh:
-     regen 512^2 x 8 spp (the fog at 4); under HG fwd+bwd regen_scan
+     regen 512^2 x 8 spp (the fog at 2); under HG fwd+bwd regen_scan
      512^2 x 4 spp (the fog at 1) over the sigmas, phase_g and the
      colours; card against CPU at 64^2, 4 bounces, every lane traced:
      parted pixels left out, the rest within FWD_MEDIUM.
@@ -195,6 +195,17 @@ drove before the walk was ported; phases 21-24 take the card's own pick.
      once each: seconds, peak memory, W1 launches, completed == spp, the
      bands' summed gradients held to the direct ones
      (northstar.check_tiled).
+ 27. The graft hook and the bounce-level tools, with the card's pick:
+     graft.entry()'s fn (cornell.json with an 80-triangle icosphere, 64^2
+     x 1 spp, render_sample by "scan") on the card, W1 counted, against the
+     same fn on the CPU (the brute twin): every pixel within GRAFT_TOL but
+     at most GOLDEN_PARTED of them (a path an ulp parted), the means within
+     HI_MEAN_REL; then each of the port's tools bounces, bounce_parts,
+     trace_bounce, bisect_bounce (both modes), profile_floor, bwd_anatomy,
+     spmd_audit (1 rank over NCCL: a render issues no collective, a step
+     two all-reduces, 132 bytes of gradient) and scaling_bench (1 rank:
+     no scaling number) run in this process at a small size (TOOL_SIZES),
+     its JSON lines logged and its keys checked, W1 counted.
 
 Prints the kernels' JSON line (with each kernel's bound: the larger of its
 bytes over 3.35 TB/s and its operations over 67 TFLOP/s, the H100 SXM's
@@ -242,6 +253,12 @@ process of its own (python -m ...tools.regen_scan_probe: forward only and
 fwd+bwd by remat x SCAN_CHUNK, a child process a variant; python -m
 ...tools.northstar: 1024^2 x 4 spp, tiled x 4 and direct, a cold run and
 the best of 2 more); no result line.
+
+    python3 chip_smoke.py --tools
+
+runs phases 1-2 and 27, then each of phase 27's tools at its defaults as
+a process of its own (python -m ...tools.<name>; bisect_bounce also with
+--isect); no result line.
 
     python3 chip_smoke.py --bdpt-bound
 
@@ -3386,6 +3403,9 @@ GOLDENS_SLICE8 = {
 # path A's regen forward: the mesh dispatch whose merged batch K1 is held
 # on against its twin
 SDF_K1_CALL = 6
+# path A's forward frames by regen, while and scan (8 before phase 27
+# took their time)
+SDF_SPP = 4
 
 
 def _hi_mesh():
@@ -3697,7 +3717,7 @@ def sdf_scene(d, mesh, bounces=None, side=FRAME):
     return cfg, scene, default_camera(side, side).pytree(d)
 
 
-def phase_sdf(dev, gpu_line, spp=8, fb_spp=4):
+def phase_sdf(dev, gpu_line, spp=None, fb_spp=4):
     """Path A (BASELINE config 3): sdf_demo.json (3 SDFs, a box, 8 bounces)
     with icosphere_hi as its mesh."""
     import dataclasses
@@ -3707,6 +3727,7 @@ def phase_sdf(dev, gpu_line, spp=8, fb_spp=4):
     from photorealistic_rendering_using_opencl_tpu_torch.scene.obj import make_icosphere
 
     w = FRAME
+    spp = SDF_SPP if spp is None else spp
     log(f"[17] path A: sdf_demo.json + {HI_MESH} ({w}^2), forward by regen, "
         f"while and scan x {spp} spp, fwd+bwd regen_scan x {fb_spp} spp")
     mesh = _hi_mesh()
@@ -3800,10 +3821,11 @@ def phase_media(dev, gpu_line, spp=8, fb_spp=4):
             label = f"B {medium} {phase}"
             cfg, scene, cam = media_scene(dev, mesh, doc_medium, phase)
             first = (medium, phase) == ("homogeneous", "hg")
-            # the height fog's forward frames at half the spp, for time
+            # the height fog's forward frames at a quarter of the spp, for
+            # time (half before phase 27 took it)
             res = {"forward": path_forward(
                 label, cfg, scene, cam, w,
-                spp if medium == "homogeneous" else spp // 2, "regen",
+                spp if medium == "homogeneous" else spp // 4, "regen",
                 gpu_line, profile=first)[1]}
             if phase == "hg":
                 # the height fog's paths are ~5x longer: a quarter of the
@@ -5520,6 +5542,179 @@ def phase_remat(dev, gpu_line, side=REMAT_SIDE, spp=REMAT_SPP,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the graft hook (graft.py) and the bounce-level tools
+# ---------------------------------------------------------------------------
+
+# card against CPU for graft.entry()'s fn at its scene's 32 bounces:
+# tests/test_torch_render.py's bound there, rtol = atol
+GRAFT_TOL = 5e-4
+# phase 27's sizes of the tools (their defaults are for --tools)
+TOOL_SIZES = dict(bounces_width=256, lanes=(16384, 65536), trace_lanes=65536,
+                  trace_steps=2, bwd_width=32, bwd_spp=1,
+                  bwd_variants=("all", "nosan"))
+TOOL_KEYS = {
+    "bounces": {"bounce", "ms", "alive", "alive_frac"},
+    "bounce_parts": {"lanes", "name", "ms", "device_ms", "kernels"},
+    "trace_bounce": {"ms", "name", "calls"},
+    "bisect_bounce": {"name", "ms", "device_ms", "kernels"},
+    "profile_floor": {"lanes", "name", "ms", "device_ms", "kernels"},
+    "bwd_anatomy": {"variant", "iters", "chunk", "best", "fwd", "bwd",
+                    "rate", "temp", "compile"},
+    "spmd_audit": {"counts", "bytes", "total_collectives", "program",
+                   "n_devices", "padded_pixels"},
+}
+
+
+def tool_rows(name, run, *args):
+    """A port tool's ``run`` in this process, its JSON lines logged with
+    the tool's name in front -> (its rows, seconds)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rows = run(*args)
+    secs = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        log(f"  {name}: {line}")
+    return rows, secs
+
+
+def graft_card_vs_cpu(dev, gpu_line):
+    """(a) graft.entry()'s fn on the card (W1 by the card's pick) against
+    the same fn on the CPU."""
+    import torch
+    from photorealistic_rendering_using_opencl_tpu_torch import graft
+    cfg, _ = graft.tiny_scene(dev)
+    if cfg.mesh_accel != "bvh":
+        fail(f"graft: the card picked {cfg.mesh_accel!r}, not the walk")
+    fn, args = graft.entry(dev)
+    with torch.no_grad():
+        fn(*args)  # warm-up
+        reset_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        got = fn(*args)
+        _sync(dev)
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        cpu_fn, cpu_args = graft.entry("cpu")
+        want = cpu_fn(*cpu_args)
+    g, c = got.cpu(), want
+    if g.shape != (graft.WIDTH * graft.HEIGHT, 3) or not bool(
+            torch.isfinite(g).all()):
+        fail(f"graft: radiance of shape {tuple(g.shape)} not all finite")
+    if counts["W1"] == 0 or counts["K1"]:
+        fail(f"graft: the fn did not run through W1 alone ({counts})")
+    diff = (g - c).abs()
+    beyond = (diff > GRAFT_TOL + GRAFT_TOL * c.abs()).any(-1)
+    mean_rel = abs(float(g.mean()) / float(c.mean()) - 1.0)
+    log(f"  (a) graft.entry(): {graft.WIDTH}^2 x 1 spp on the card in "
+        f"{secs:.3f} s (W1 {counts['W1']}, K1 {counts['K1']}); against the "
+        f"CPU's fn (brute twin): {int(beyond.sum())} of {beyond.numel()} "
+        f"pixels beyond {GRAFT_TOL} (limit {GOLDEN_PARTED} of them), max diff "
+        f"{float(diff.max()):.3g}, mean rel {mean_rel:.3g} (limit "
+        f"{HI_MEAN_REL}); on {gpu_line}")
+    if float(beyond.float().mean()) > GOLDEN_PARTED or mean_rel > HI_MEAN_REL:
+        fail(f"graft: card against CPU, {int(beyond.sum())} pixels beyond "
+             f"{GRAFT_TOL}, mean rel {mean_rel:.3g}")
+    return dict(seconds=secs, W1=counts["W1"], beyond=int(beyond.sum()),
+                max_diff=float(diff.max()), mean_rel=mean_rel)
+
+
+def check_tool_rows(name, rows, keys):
+    """Every row of a tool but its last (the device's) has ``keys``; the
+    last names the card."""
+    import torch
+    body = [r for r in rows[:-1] if keys <= set(r)]
+    if not body:
+        fail(f"tools.{name}: no row with the keys {sorted(keys)}")
+    if rows[-1].get("device") != torch.cuda.get_device_name(0):
+        fail(f"tools.{name}: its last row names {rows[-1].get('device')}")
+    return body
+
+
+def phase_graft_tools(dev, gpu_line):
+    """Phase 27: (a) the graft hook on the card against the CPU; (b) each
+    bounce-level and several-rank tool at TOOL_SIZES in this process, W1
+    counted over all of them."""
+    from photorealistic_rendering_using_opencl_tpu_torch.tools import (
+        _common, bisect_bounce, bounce_parts, bounces, bwd_anatomy,
+        profile_floor, scaling_bench, spmd_audit, trace_bounce,
+    )
+    z = TOOL_SIZES
+    hi = _common.CORNELL_HI
+    log("[27] the graft hook (graft.entry) and the bounce-level tools, "
+        "with the card's pick")
+    out = {"graft": graft_card_vs_cpu(dev, gpu_line)}
+    reset_counts()
+    runs = {
+        "bounces": (bounces.run, z["bounces_width"], hi, dev),
+        "bounce_parts": (bounce_parts.run, z["lanes"], hi, dev),
+        "trace_bounce": (trace_bounce.run, z["trace_lanes"], z["trace_steps"],
+                         10, hi, dev),
+        "bisect_bounce": (bisect_bounce.bisect, z["lanes"][-1], hi, dev),
+        "bisect_bounce --isect": (bisect_bounce.isect_full, z["lanes"][-1],
+                                  hi, dev),
+        "profile_floor": (profile_floor.run, z["lanes"], hi, dev),
+        "spmd_audit": (spmd_audit.run, [1], dev),
+        "scaling_bench": (scaling_bench.run, dev),
+    }
+    rows, secs = {}, {}
+    for name, (fn, *args) in runs.items():
+        rows[name], secs[name] = tool_rows(name, fn, *args)
+    bwd = []
+    for v in z["bwd_variants"]:
+        r, t = tool_rows("bwd_anatomy", bwd_anatomy.run, z["bwd_width"],
+                         z["bwd_spp"], v, dev, 1)
+        bwd += r[:-1]
+        secs[f"bwd_anatomy {v}"] = t
+    rows["bwd_anatomy"] = bwd + [r[-1]]
+    counts = read_counts()
+    for name, keys in TOOL_KEYS.items():
+        check_tool_rows(name, rows[name], keys)
+    check_tool_rows("bisect_bounce --isect", rows["bisect_bounce --isect"],
+                    TOOL_KEYS["bisect_bounce"])
+    if counts["W1"] == 0:
+        fail(f"phase 27 tools: W1 never launched ({counts})")
+    audit = {r["program"]: r for r in rows["spmd_audit"][:-1]}
+    step, frame = audit["train_step"], audit["render_sharded"]
+    if (frame["total_collectives"] or step["counts"]["all-reduce"] != 2
+            or step["total_collectives"] != 2
+            or step["param_gradient_bytes"] != 132
+            or step["bytes"]["all-reduce"] != 4 + 132
+            or step["backend"] != ("nccl" if dev.type == "cuda" else "gloo")):
+        fail(f"spmd_audit on 1 rank: {audit}, not a render without "
+             "collectives and a step of 2 all-reduces (132 bytes of "
+             "gradient) over NCCL")
+    (scale,) = rows["scaling_bench"]
+    if len(scale["points"]) != 1 or not scale["note"] or (
+            "parallel_speedup" in scale["points"][0]):
+        fail(f"scaling_bench on one card printed a scaling number: {scale}")
+    parts = {(r["lanes"], r["name"]): r for r in rows["bounce_parts"][:-1]}
+    log("  (b) tools in this process: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in secs.items()) + f"; W1 {counts['W1']}; "
+        f"spmd_audit on 1 rank over {step['backend']}: render "
+        f"{frame['total_collectives']} collectives, step "
+        f"{step['counts']['all-reduce']} all-reduces "
+        f"({step['bytes']['all-reduce']} bytes, gradient "
+        f"{step['param_gradient_bytes']}); on {gpu_line}")
+    out.update(tools_W1=counts["W1"], tool_seconds=secs,
+               bounce_parts={f"{n} {name}": dict(
+                   ms=r["ms"], device_ms=r["device_ms"], kernels=r["kernels"])
+                   for (n, name), r in parts.items()},
+               spmd_audit=rows["spmd_audit"][:-1],
+               bwd_anatomy=rows["bwd_anatomy"][:-1])
+    return out
+
+
+TOOLS_DEFAULT = (("bounces",), ("bounce_parts",), ("trace_bounce",),
+                 ("bisect_bounce",), ("bisect_bounce", "--isect"),
+                 ("profile_floor",), ("bwd_anatomy",), ("spmd_audit",),
+                 ("scaling_bench",))
+
+
 def run_tool(name, *args, timeout=900):
     """``python -m`` one of the port's tools at its defaults (a process of
     its own, so its first run is a fresh process's), its lines logged ->
@@ -5632,13 +5827,14 @@ def main(argv=None) -> int:
     sharded = argv == ["--sharded"]
     bdpt_bound = argv == ["--bdpt-bound"]
     regen_scan = argv == ["--regen-scan"]
+    tools = argv == ["--tools"]
     times = argv[:1] == ["--kernel-times"] and (
         len(argv) == 1 or (len(argv) == 3 and argv[1] == "--port-root"))
     if argv and not (kernels_only or sweep or census or times or paths
-                     or walk or bdpt_bound or sharded or regen_scan):
+                     or walk or bdpt_bound or sharded or regen_scan or tools):
         fail(f"unknown arguments {argv}: none, --kernels-only, --k1-sweep, "
              "--op-census, --paths, --walk, --sharded, --bdpt-bound, "
-             "--regen-scan or --kernel-times [--port-root DIR]")
+             "--regen-scan, --tools or --kernel-times [--port-root DIR]")
     root = os.path.abspath(argv[2]) if times and len(argv) == 3 else REPO
     if not os.path.isdir(os.path.join(root, PKG)):
         fail(f"the port package {PKG}/ is not in {root}")
@@ -5721,6 +5917,16 @@ def main(argv=None) -> int:
             f"{time.perf_counter() - t_start:.1f} s after the build; no "
             "result line")
         return 0
+    if tools:
+        log("graft and tools: " + json.dumps(phase_graft_tools(dev, gpu_line)))
+        done(27)
+        for args in TOOLS_DEFAULT:
+            log(f"[27b] tools.{' '.join(args)} at its defaults")
+            log(f"{args[0]}: " + json.dumps(run_tool(*args, timeout=1200)))
+        log(f"partial run (--tools: phases 1-2, 27 and the tools at their "
+            f"defaults), {time.perf_counter() - t_start:.1f} s after the "
+            "build; no result line")
+        return 0
     if walk:
         wp = walk_phases(None)
         for key in ("w1", "w1_extra", "crossover", "default", "bdpt"):
@@ -5796,6 +6002,8 @@ def main(argv=None) -> int:
     done(25)
     remat = phase_remat(dev, gpu_line)
     done(26)
+    graft_tools = phase_graft_tools(dev, gpu_line)
+    done(27)
 
     cam = k1_times["camera"]
     k1_paths = {"forward 512^2 x 8 spp (regen)": launches["K1"],
@@ -5810,7 +6018,7 @@ def main(argv=None) -> int:
                     cli["k1"],
                 f"CLI --aov, 5 modes at {CLI_SIDE}^2 (app.main)":
                     cli["aov"]["k1"],
-                **{f"A {m} 512^2 x 8 spp": r["K1"]
+                **{f"A {m} 512^2 x {SDF_SPP} spp": r["K1"]
                    for m, r in sdf["forward"].items()},
                 "A fwd+bwd 512^2 x 4 spp (regen_scan)": sdf["fwd_bwd"]["K1"],
                 **{f"B {k} 512^2 (regen)": r["forward"]["K1"]
@@ -5840,7 +6048,10 @@ def main(argv=None) -> int:
                    for m in ("body", "segment")},
                 **{f"north star {k} {NORTH_SIDE}^2 x {NORTH_SPP} spp "
                    "fwd+bwd": remat["c"][k]["launches"]["forward"]["W1"]
-                   for k in (f"tiled x{NORTH_TILES}", "direct")}}
+                   for k in (f"tiled x{NORTH_TILES}", "direct")},
+                "graft.entry() 64^2 x 1 spp (scan)":
+                    graft_tools["graft"]["W1"],
+                "phase 27's tools at TOOL_SIZES": graft_tools["tools_W1"]}
     w1_cam = w1_times["camera"]
     k2_paths = {"forward 512^2 x 8 spp (regen)": launches["K2"],
                 "forward 512^2 x 8 spp (scan)": sw["scan"]["k2"],
@@ -5849,7 +6060,7 @@ def main(argv=None) -> int:
                 f"CLI export {CLI_SIDE}^2 (app.main)": cli["k2"],
                 f"CLI --aov, 5 modes at {CLI_SIDE}^2 (app.main)":
                     cli["aov"]["k2"],
-                **{f"A {m} 512^2 x 8 spp": r["K2"]
+                **{f"A {m} 512^2 x {SDF_SPP} spp": r["K2"]
                    for m, r in sdf["forward"].items()},
                 **{f"B {k} 512^2 (regen)": r["forward"]["K2"]
                    for k, r in med.items() if k != "card_vs_cpu"},
@@ -5993,6 +6204,7 @@ def main(argv=None) -> int:
     log("BDPT: " + json.dumps(bdpt))
     log("sharded: " + json.dumps(shard))
     log("remat: " + json.dumps(remat))
+    log("graft and tools: " + json.dumps(graft_tools))
     log(f"total {time.perf_counter() - t_start:.1f} s after the build")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu_line, flush=True)

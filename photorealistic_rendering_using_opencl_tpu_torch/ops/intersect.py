@@ -610,6 +610,10 @@ def ray_sort_key(origin, direction, clusters):
             | cell[:, 2])
 
 
+# a mesh hit's mesh_id is cfg.n_objects plus this offset
+OBJ_MESH_ID_OFFSET = 0
+
+
 def mesh_tables(cfg: SceneConfig, scene: SceneData):
     """(tri_verts, tri_normals) in the index space of ``cfg.mesh_accel``'s
     winners."""

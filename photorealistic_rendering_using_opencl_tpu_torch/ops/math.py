@@ -14,9 +14,11 @@ import torch
 EPS = 1e-5
 # the reference clamps rays at INF = 2e1 (a 20-unit world)
 RAY_INF = 2e1
+BIG = 1e30
 
 PI = math.pi
 TWO_PI = 2.0 * math.pi
+FOUR_PI = 4.0 * math.pi
 INV_PI = 1.0 / math.pi
 INV_TWO_PI = 1.0 / (2.0 * math.pi)
 INV_FOUR_PI = 1.0 / (4.0 * math.pi)
@@ -55,6 +57,10 @@ def fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     return s.float()
 
 
+def length(a: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.clamp(dot(a, a), min=0.0))
+
+
 def normalize(a: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     return a * torch.reciprocal(torch.sqrt(torch.clamp(dot3(a, a), min=eps)))
 
@@ -78,6 +84,11 @@ def fmax3(v: torch.Tensor) -> torch.Tensor:
     return torch.amax(v, dim=-1)
 
 
+def fmin3(v: torch.Tensor) -> torch.Tensor:
+    """Min component over the last axis."""
+    return torch.amin(v, dim=-1)
+
+
 def avg3(v: torch.Tensor) -> torch.Tensor:
     """Mean over the last axis."""
     return torch.mean(v, dim=-1)
@@ -91,6 +102,10 @@ def sgn_e(x: torch.Tensor) -> torch.Tensor:
 def copysign(mag: float, x: torch.Tensor) -> torch.Tensor:
     """``jnp.copysign(mag, x)`` for a scalar magnitude."""
     return torch.copysign(torch.full_like(x, mag), x)
+
+
+def lerp(a, b, w):
+    return a + w * (b - a)
 
 
 # ---------------------------------------------------------------------------
@@ -128,6 +143,24 @@ def reflect_local(wi: torch.Tensor) -> torch.Tensor:
 def smoothstep(e0, e1, x):
     t = torch.clamp((x - e0) / (e1 - e0), 0.0, 1.0)
     return t * t * (3.0 - 2.0 * t)
+
+
+# the reference fetches tables of at most this many rows by select_rows
+SELECT_MAX_ROWS = 24
+
+
+def select_rows(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``arr[idx]`` ([K,...] by [N]) as the reference's compare/select
+    chain: row 0 where ``idx`` names no row.  The reference prefers it to
+    a gather on the TPU; the port's render path gathers
+    (``fetch_float_rows``)."""
+    out = torch.broadcast_to(arr[0], idx.shape + arr.shape[1:]).clone()
+    for i in range(1, arr.shape[0]):
+        m = idx == i
+        if arr.ndim > 1:
+            m = m[..., None]
+        out = torch.where(m, arr[i], out)
+    return out
 
 
 class _FetchFloatRows(torch.autograd.Function):

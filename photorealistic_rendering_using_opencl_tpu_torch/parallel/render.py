@@ -29,13 +29,23 @@ import torch.distributed as dist
 from photorealistic_rendering_using_opencl_tpu_torch.models import (
     integrator, pathtracer,
 )
-from photorealistic_rendering_using_opencl_tpu_torch.parallel.distributed import rank_world
+from photorealistic_rendering_using_opencl_tpu_torch.parallel.distributed import (
+    RAYS_AXIS, global_mesh, rank_world,
+)
 from photorealistic_rendering_using_opencl_tpu_torch.scene.types import (
     SceneConfig, SceneData,
 )
+from photorealistic_rendering_using_opencl_tpu_torch.utils.device import DEFAULT_DEVICE
 
 PARAM_LEAVES = ("color", "obj_color", "medium_sigma_a", "medium_sigma_s",
                 "medium_sigma_t")
+
+
+def default_mesh(device=DEFAULT_DEVICE):
+    """The 1-D ``("rays",)`` mesh over every rank of the default group
+    (``distributed.global_mesh``): the reference's mesh over its devices,
+    here one rank a device."""
+    return global_mesh(device)
 
 
 def _pad_to(n: int, m: int) -> int:
