@@ -66,7 +66,9 @@ order, none of them optional and none wrapped in a fallback:
      at both blocks against its FLOP bound and its FP32 issue floor; the
      (ray, tile) pairs it adds against those K1 tests; times of its plain
      version and the relevance pass, and K1 / T1 on that batch; then the K1
-     microbenchmark (tools/bench_kernel.py) as a user runs it.
+     microbenchmark (tools/bench_kernel.py) as a user runs it, with its
+     precision sweep (each PRT_MESH_PRECISION name's time, index agreement
+     and hit/miss flips against highest) and its bf16-table leg.
  11. T2a / T2b (csrc/passthrough.cu) bitwise against x.clone() on
      262,144 x 3 floats, each timed against x.clone() in turns inside one
      profiler window, warm and with the L2 flushed before each call; T2a
@@ -115,7 +117,7 @@ order, none of them optional and none wrapped in a fallback:
  18. Path B (BASELINE config 4): cornell_media.json (homogeneous, 12
      bounces, 64 scatter events) and its height fog (tests/golden_tool.py's
      exponential medium), each with icosphere_hi, under HG and Rayleigh:
-     regen 512^2 x 8 spp (the fog at 2); under HG fwd+bwd regen_scan
+     regen 512^2 x 4 spp (the fog at 1); under HG fwd+bwd regen_scan
      512^2 x 4 spp (the fog at 1) over the sigmas, phase_g and the
      colours; card against CPU at 64^2, 4 bounces, every lane traced:
      parted pixels left out, the rest within FWD_MEDIUM.
@@ -184,16 +186,17 @@ drove before the walk was ported; phases 21-24 take the card's own pick.
      two ranks share the card: their times are not a scaling number.
  26. trace_regen_scan(remat="segment") on cornell_hi, after an untimed
      64^2 fwd+bwd by each mode: (a) with the card's pick (W1) at 512^2 x
-     4 spp, one fwd+bwd by remat="body" then one by "segment" over every
-     float leaf and the camera: completed == spp, the walk launched once
-     an iteration in each forward and never in either backward (the
-     segment's dispatches replayed from its HitTape), the images and
-     every gradient leaf bitwise equal, seconds and peak memory of each;
+     REMAT_SPP (2) spp, one fwd+bwd by remat="body" then one by
+     "segment" over every float leaf and the camera: completed == spp,
+     the walk launched once an iteration in each forward and never in
+     either backward (the segment's dispatches replayed from its
+     HitTape), the images and every gradient leaf bitwise equal, seconds
+     and peak memory of each;
      (b) the same with K1 pinned (PRT_MESH_ACCEL=brute) at 256^2 x 2 spp;
-     (c) the north star by tools.northstar.value_and_grads at 1024^2 x 4
-     spp, its budget calibrated over the frame, by 4 bands and direct,
-     once each: seconds, peak memory, W1 launches, completed == spp, the
-     bands' summed gradients held to the direct ones
+     (c) the north star by tools.northstar.value_and_grads at 1024^2 x
+     NORTH_SPP (2) spp, its budget calibrated over the frame, by 4 bands
+     and direct, once each: seconds, peak memory, W1 launches, completed
+     == spp, the bands' summed gradients held to the direct ones
      (northstar.check_tiled).
  27. The graft hook and the bounce-level tools, with the card's pick:
      graft.entry()'s fn (cornell.json with an 80-triangle icosphere, 64^2
@@ -206,10 +209,26 @@ drove before the walk was ported; phases 21-24 take the card's own pick.
      two all-reduces, 132 bytes of gradient) and scaling_bench (1 rank:
      no scaling number) run in this process at a small size (TOOL_SIZES),
      its JSON lines logged and its keys checked, W1 counted.
+ 28. K1's reduced-precision forms: the tensor-core kernel
+     (csrc/mesh_brute_tc.cu) in each of TC_FORMS (PRT_MESH_PRECISION
+     default, bf16x3, bf16x6; the table cast to bf16) against its plain
+     version (mesh_brute.intersect_reduced_plain) on the card, on the
+     cornell_hi tables and phase 3's random, camera and surface
+     populations and phase 21's render population: winner and occlusion
+     flips (at most FLIP_LIMIT a ray), the t difference where winners
+     agree (at most TC_DT_REL of max(|t|, 1)), CUDA-event ms warm and
+     L2-flushed (event_ms), the bound, and
+     the lanes PRT_MESH_NOREL moves (none in bf16x6); K1 under
+     PRT_MESH_NOREL bitwise; PRT_MESH_FORCE_XLA: no kernel, bitwise the
+     twin; one brute-pinned cornell_hi regen frame at TC_SIDE^2 x TC_SPP
+     spp in each form, its mean radiance against highest's (printed; only
+     finiteness gates), and bf16x3's again with mesh_second_pass (two
+     launches a mesh call).
 
 Prints the kernels' JSON line (with each kernel's bound: the larger of its
 bytes over 3.35 TB/s and its operations over 67 TFLOP/s, the H100 SXM's
-HBM3 rate and FP32 peak), the nvidia-smi line, and last the result line
+HBM3 rate and FP32 peak; the tensor-core kernel's bf16 products over 989
+TFLOP/s, its dense bf16 peak), the nvidia-smi line, and last the result line
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a result line
 when there is no CUDA device or when the port is not beside it.
 
@@ -259,6 +278,10 @@ the best of 2 more); no result line.
 runs phases 1-2 and 27, then each of phase 27's tools at its defaults as
 a process of its own (python -m ...tools.<name>; bisect_bounce also with
 --isect); no result line.
+
+    python3 chip_smoke.py --tc
+
+runs phases 1-2 and 28 alone (~45 s after the build); no result line.
 
     python3 chip_smoke.py --bdpt-bound
 
@@ -959,7 +982,7 @@ def k1_sweep(feat, clusters, pops, reps=5):
                           b["direction"].data_ptr(), b["t_init"].data_ptr(),
                           b["active"].data_ptr(), b["any_hit"].data_ptr(),
                           b["exclude"].data_ptr(), n, t.data_ptr(),
-                          i.data_ptr(), None,
+                          i.data_ptr(), None, 0,
                           torch.cuda.current_stream().cuda_stream)
                 if code:
                     fail(f"K1 sweep: {cfg} returned CUDA error {code}")
@@ -2154,11 +2177,27 @@ def phase_t1(dev, b, k1_ms):
     # the microbenchmark as a user runs it, with the counts set to 0 first
     mesh_brute.matmul_only_kernel.launches = 0
     mesh_brute.mesh_brute_kernel.launches = 0
+    mesh_brute.mesh_brute_tc_kernel.launches = 0
     bench = bench_kernel.run(RAYS, block=T1_BLOCK, reps=10)
     launches = mesh_brute.matmul_only_kernel.launches
     k1_launches = mesh_brute.mesh_brute_kernel.launches
-    if launches == 0 or k1_launches == 0:
-        fail(f"bench_kernel: T1 launched {launches}, K1 {k1_launches} times")
+    tc_launches = mesh_brute.mesh_brute_tc_kernel.launches
+    if launches == 0 or k1_launches == 0 or tc_launches == 0:
+        fail(f"bench_kernel: T1 launched {launches}, K1 {k1_launches}, "
+             f"K1tc {tc_launches} times")
+    log("  bench_kernel's precision sweep (mesh_intersect on the f32 table "
+        "under each PRT_MESH_PRECISION name, CUDA events): " + "; ".join(
+            f"{k} {v['ms']:.3f} ms" + (
+                f", index agreement vs highest {v['index_agreement']:.6f}, "
+                f"hit/miss flips {v['hit_miss_flips']}/{bench['rays']}"
+                if k != "highest" else "")
+            for k, v in bench["precision"].items()))
+    bt = bench["bf16_table"]
+    log(f"  bench_kernel's bf16 table: {bt['ms']:.3f} ms; against the f32 "
+        f"table under highest: hit rate (f32) {bt['hit_rate_f32']:.4f}, index "
+        f"agreement {bt['index_agreement']:.6f}, hit/miss flips "
+        f"{bt['hit_miss_flips']}/{bench['rays']}, kernel t max |d| where both "
+        f"hit {bt['t_max_abs_both_hit']:.3g}; launches K1tc {tc_launches}")
     log(f"  bench_kernel ({bench['rays']} rays, CUDA events over "
         f"{bench['reps']} launches): K1 {bench['k1_ms']:.3f} ms, T1 "
         f"{bench['t1_ms']:.3f} ms ({bench['t1_ms'] / bench['k1_ms']:.1%} of "
@@ -2171,7 +2210,8 @@ def phase_t1(dev, b, k1_ms):
                 f"{T1_BLOCK} (the profiler kept {t_n} of 5 kernel records); "
                 "ms_by_block: the same at each block; plain_ms: profiler "
                 f"device time of all {p_n} kernel records of one call")
-    return dict(launches=launches, k1_launches=k1_launches, err=max_abs,
+    return dict(launches=launches, k1_launches=k1_launches,
+                tc_launches=tc_launches, err=max_abs,
                 rel=rel, ms=t["ms"], plain_ms=p_ms, relevance_ms=r_ms,
                 bound=t["bound"], by=t["by"], issue_floor=t["issue_floor"],
                 by_block={str(k): v for k, v in times.items()}, sass=sass,
@@ -3803,7 +3843,7 @@ def media_scene(d, mesh, medium, phase, bounces=None, side=FRAME):
     return cfg, scene, default_camera(side, side).pytree(d)
 
 
-def phase_media(dev, gpu_line, spp=8, fb_spp=4):
+def phase_media(dev, gpu_line, spp=4, fb_spp=4):
     """Path B (BASELINE config 4): cornell_media.json (homogeneous, 12
     bounces, 64 scatter events) and its height-fog variant, each with
     icosphere_hi, under HG and Rayleigh."""
@@ -3822,7 +3862,8 @@ def phase_media(dev, gpu_line, spp=8, fb_spp=4):
             cfg, scene, cam = media_scene(dev, mesh, doc_medium, phase)
             first = (medium, phase) == ("homogeneous", "hg")
             # the height fog's forward frames at a quarter of the spp, for
-            # time (half before phase 27 took it)
+            # time (half before phase 27 took it; spp 4, was 8, since phase
+            # 28)
             res = {"forward": path_forward(
                 label, cfg, scene, cam, w,
                 spp if medium == "homogeneous" else spp // 4, "regen",
@@ -5363,10 +5404,10 @@ def phase_sharded(dev, gpu_line):
 
 # (a) body against segment with the card's pick, (b) with K1 pinned, (c)
 # the north star by tools.northstar (REMAT_SPP etc. set the work; widths
-# are never cut)
-REMAT_SIDE, REMAT_SPP = 512, 4
+# are never cut; (a) and (c) cut from 4 spp to 2 for the script's time)
+REMAT_SIDE, REMAT_SPP = 512, 2
 REMAT_K1_SIDE, REMAT_K1_SPP = 256, 2
-NORTH_SIDE, NORTH_SPP, NORTH_TILES = 1024, 4, 4
+NORTH_SIDE, NORTH_SPP, NORTH_TILES = 1024, 2, 4
 
 
 def _reset_peak(dev):
@@ -5734,6 +5775,354 @@ def run_tool(name, *args, timeout=900):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 28: K1's reduced-precision forms on the tensor cores
+# ---------------------------------------------------------------------------
+
+# the forms phase 28 runs: label -> (PRT_MESH_PRECISION name, bf16 table)
+TC_FORMS = {"default": ("default", False), "bf16x3": ("bf16x3", False),
+            "bf16x6": ("bf16x6", False), "bf16 table": ("highest", True)}
+# the brute-pinned cornell_hi regen frame of each form
+TC_SIDE, TC_SPP = 256, 2
+TC_EVENT_REPS = 3
+# the H100 SXM's dense bf16 tensor-core peak (NVIDIA data sheet, 700 W)
+BF16_FLOP_PER_S = 989e12
+# the tensor-core operations a (ray, triangle) pair of a term needs: the 4
+# quantities, each a dot over the 10 non-zero ray features, a multiply and
+# an add each (the kernel's mma runs K = 16, 6 of them on zero features)
+TC_PAIR_TENSOR_OPS = 2 * 4 * 10
+# the tensor-core kernel's FP32 operations a (ray, triangle) pair of its hit
+# test (den^2, the three barycentric products and two differences, the two
+# minima, t*den, EPS*den^2, the index's float sum) and a (ray, tile) slab
+# test of its relevance pass (six differences and products, six minima and
+# maxima, the t test)
+TC_PAIR_FLOPS = 13
+TC_SLAB_FLOPS = 20
+# how far t may part from the plain version's where the winners agree, as
+# a share of max(|t|, 1): the kernel sums each quantity's products in
+# another order, so the error follows the coordinates (scene units) more
+# than t; ~10x the largest difference measured on an H100 (4.4e-5 at
+# |t| <= 1, bf16x3 on phase 3's surface population)
+TC_DT_REL = 5e-4
+
+
+def tc_form(feat, label):
+    """(the table, the tensor-core kernel's form) of a TC_FORMS label, with
+    mesh_brute._PRECISION_NAME set to the label's name."""
+    import torch
+    from photorealistic_rendering_using_opencl_tpu_torch.ops import mesh_brute
+    name, bf16 = TC_FORMS[label]
+    mesh_brute._PRECISION_NAME = name
+    table = feat.to(torch.bfloat16) if bf16 else feat
+    return table, mesh_brute.reduced_form(table)
+
+
+def tc_launch(table, clusters, b, form, norel=False):
+    from photorealistic_rendering_using_opencl_tpu_torch.ops import mesh_brute
+    return mesh_brute.mesh_brute_tc_kernel(
+        mesh_brute.form_fragments(table, form), clusters, b["origin"],
+        b["direction"], b["t_init"], b["active"], b["any_hit"], b["exclude"],
+        form, norel=norel)
+
+
+def tc_bound(table, clusters, b, form, tri):
+    """The tensor-core kernel's bound on one batch, from the work this
+    batch needs: each active lane tests the tiles its block's relevance
+    words set, an any-hit lane (by ``tri``, the plain version's result) up
+    to its first occluding tile; a (ray, triangle) pair of those costs
+    TC_PAIR_TENSOR_OPS bf16 tensor-core operations a term and TC_PAIR_FLOPS
+    FP32 ones; every active ray slab-tests every tile; the fragments, boxes
+    and rays are read once and (t, tri) written once -> (ms, "bytes" or
+    "operations", the numbers)."""
+    import torch
+    from photorealistic_rendering_using_opencl_tpu_torch.ops import mesh_brute
+    words = mesh_brute.relevance_words(clusters, b["origin"], b["direction"],
+                                       b["t_init"], b["active"],
+                                       mesh_brute.RELEVANCE_BLOCK)
+    nt = clusters.shape[0]
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    bits = ((w[..., None] >> torch.arange(32, device=w.device)) & 1)
+    # relevant tiles of each block up to and including each tile
+    upto = bits.flatten(1)[:, :nt].cumsum(1)
+    n = b["origin"].shape[0]
+    block = torch.arange(n, device=w.device) // mesh_brute.RELEVANCE_BLOCK
+    tiles = upto[block, -1]
+    stop = b["any_hit"] & (tri >= 0)
+    tiles = torch.where(stop, upto[block, tri.clamp(min=0).long()
+                                   // mesh_brute.TILE], tiles)
+    pairs = int(tiles[b["active"]].sum()) * mesh_brute.TILE
+    terms = len(mesh_brute.FORM_TERMS[form])
+    frag = mesh_brute.form_fragments(table, form)
+    n_bytes = (frag.numel() * 2 + clusters.numel() * 4
+               + n * (12 + 12 + 4 + 1 + 1 + 4) + n * (4 + 4))
+    tensor_ops = pairs * TC_PAIR_TENSOR_OPS * terms
+    fp32_ops = (pairs * TC_PAIR_FLOPS + int(b["active"].sum()) * nt
+                * TC_SLAB_FLOPS)
+    t_mem = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(tensor_ops / BF16_FLOP_PER_S, fp32_ops / FP32_FLOP_PER_S) * 1e3
+    by = "bytes" if t_mem >= t_ops else "operations"
+    return max(t_mem, t_ops), by, dict(
+        ray_triangle_pairs=pairs, tensor_gop=tensor_ops / 1e9,
+        fp32_gop=fp32_ops / 1e9, mb=n_bytes / 1e6,
+        tensor_ms=tensor_ops / BF16_FLOP_PER_S * 1e3,
+        fp32_ms=fp32_ops / FP32_FLOP_PER_S * 1e3, bytes_ms=t_mem)
+
+
+def tc_dt(t_k, t_p, same):
+    """(max |t_k - t_p|, max of it over max(|t_p|, 1)) on the lanes
+    ``same``."""
+    if not bool(same.any()):
+        return 0.0, 0.0
+    d = (t_k[same] - t_p[same]).abs()
+    return float(d.max()), float((d / t_p[same].abs().clamp(min=1.0)).max())
+
+
+def tc_compare(label, pop, table, clusters, b, form, problems, flush):
+    """The tensor-core kernel against its plain version on one batch:
+    winner flips on closest lanes, occlusion flips on any-hit lanes (each
+    at most FLIP_LIMIT a ray), inactive and any-hit lanes' t exactly the
+    plain version's, the t difference where the winners agree (at most
+    TC_DT_REL of max(|t|, 1)); the kernel's CUDA-event ms warm and
+    L2-flushed (event_ms), the plain version's by the host clock, and the
+    bound."""
+    import torch
+    from photorealistic_rendering_using_opencl_tpu_torch.ops import mesh_brute
+    t_k, i_k = tc_launch(table, clusters, b, form)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t_p, i_p = mesh_brute.intersect_reduced_plain(
+        table, clusters, b["origin"], b["direction"], b["t_init"],
+        b["active"], b["any_hit"], b["exclude"], form)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    act, ah = b["active"], b["any_hit"]
+    closest, anyhit = act & ~ah, act & ah
+    win = (i_k != i_p) & closest
+    occ = ((i_k >= 0) != (i_p >= 0)) & anyhit
+    n_closest, n_any = int(closest.sum()), int(anyhit.sum())
+    same = closest & (i_k == i_p) & (i_k >= 0)
+    dt, dt_rel = tc_dt(t_k, t_p, same)
+    rest = ~closest
+    t_rest = torch.equal(t_k[rest], t_p[rest]) and torch.equal(
+        i_k[~act], i_p[~act])
+    for lane in torch.nonzero(win | occ).flatten()[:4].tolist():
+        log(f"    {label} {pop} lane {lane}: kernel tri {int(i_k[lane])} t "
+            f"{float(t_k[lane]):.9g}, plain tri {int(i_p[lane])} t "
+            f"{float(t_p[lane]):.9g}")
+    if int(win.sum()) > FLIP_LIMIT * n_closest:
+        problems.append(f"K1tc {label} {pop}: {int(win.sum())} winner flips "
+                        f"of {n_closest} > {FLIP_LIMIT} a ray")
+    if int(occ.sum()) > FLIP_LIMIT * n_any:
+        problems.append(f"K1tc {label} {pop}: {int(occ.sum())} occlusion "
+                        f"flips of {n_any} > {FLIP_LIMIT} a ray")
+    if not t_rest:
+        problems.append(f"K1tc {label} {pop}: inactive or any-hit lanes "
+                        "differ from the plain version")
+    if dt_rel > TC_DT_REL:
+        problems.append(f"K1tc {label} {pop}: t parts from the plain "
+                        f"version's by {dt_rel:.3g} of max(|t|, 1) where the "
+                        f"winners agree > {TC_DT_REL}")
+    warm = event_ms(lambda: tc_launch(table, clusters, b, form),
+                    TC_EVENT_REPS)
+    cold = event_ms(lambda: tc_launch(table, clusters, b, form),
+                    TC_EVENT_REPS, flush)
+    bound, by, work = tc_bound(table, clusters, b, form, i_p)
+    return dict(win_flips=int(win.sum()), occ_flips=int(occ.sum()),
+                closest=n_closest, any_hit=n_any,
+                hits=int((i_p[closest] >= 0).sum()), max_abs_dt=dt,
+                max_rel_dt=dt_rel,
+                ms=warm["ms"], flushed_ms=cold["ms"], plain_ms=plain_ms,
+                bound=bound, by=by, work=work, out=(t_k, i_k))
+
+
+def tc_frame(cfg, scene, cam, side=TC_SIDE, spp=TC_SPP):
+    """The brute-pinned regen frame at side^2 x spp, seed 0, with
+    K1's and the tensor-core kernel's counts set to 0 just before and read
+    just after -> (image, {"K1": n, "K1tc": n}, seconds)."""
+    import torch
+    from photorealistic_rendering_using_opencl_tpu_torch.models import pathtracer
+    from photorealistic_rendering_using_opencl_tpu_torch.ops import mesh_brute
+    torch.cuda.synchronize()
+    mesh_brute.mesh_brute_kernel.launches = 0
+    mesh_brute.mesh_brute_tc_kernel.launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        img, _ = pathtracer.render(cfg, scene, cam, side, side, spp,
+                                   seed=0, method="regen")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = dict(K1=mesh_brute.mesh_brute_kernel.launches,
+                  K1tc=mesh_brute.mesh_brute_tc_kernel.launches)
+    if not bool(torch.isfinite(img).all()):
+        fail(f"phase 28: a frame has non-finite pixels ({counts})")
+    return img, counts, secs
+
+
+def phase_tc(dev, gpu_line, side=TC_SIDE, spp=TC_SPP):
+    """Phase 28: the tensor-core kernel (csrc/mesh_brute_tc.cu) in each
+    reduced form of TC_FORMS against its plain version on the cornell_hi
+    tables, on phase 3's random, camera and surface populations and phase
+    21's render population; PRT_MESH_NOREL and PRT_MESH_FORCE_XLA; one
+    brute-pinned regen frame (side^2 x spp) in each form against
+    highest's, and bf16x3's again with mesh_second_pass."""
+    import dataclasses
+
+    import torch
+    from photorealistic_rendering_using_opencl_tpu_torch.ops import intersect, mesh_brute
+    from photorealistic_rendering_using_opencl_tpu_torch.ops.camera_rays import (
+        default_camera,
+    )
+    from photorealistic_rendering_using_opencl_tpu_torch.scene.loader import load_scene
+
+    log("[28] the tensor-core kernel mesh_brute_tc.cu in each reduced form")
+    t_phase = time.perf_counter()
+    cfg, scene = load_scene(os.path.join(REPO, "scenes/cornell_hi.json"),
+                            models_dir=os.path.join(REPO, "scenes/assets"),
+                            device=dev)
+    feat, clusters = scene.bf_feat, scene.bf_clusters
+    pops = k1_populations(scene, dev)
+    pops["render"] = regen_dispatch(
+        dataclasses.replace(cfg, mesh_accel="bvh"), scene, FRAME, 8,
+        RENDER_CALL)
+    flush = l2_flush(dev)
+    saved = mesh_brute._PRECISION_NAME
+    problems, forms, norel = [], {}, {}
+    try:
+        for label in TC_FORMS:
+            table, form = tc_form(feat, label)
+            forms[label] = {}
+            for pop, b in pops.items():
+                r = tc_compare(label, pop, table, clusters, b, form,
+                               problems, flush)
+                t_k, i_k = r.pop("out")
+                # PRT_MESH_NOREL: every live lane tests every tile
+                t_n, i_n = tc_launch(table, clusters, b, form, norel=True)
+                r["norel_lanes_moved"] = int(
+                    ((t_n != t_k) | (i_n != i_k)).sum())
+                forms[label][pop] = r
+                log(f"  K1tc {label} ({form}) {pop}: {b['origin'].shape[0]} "
+                    f"lanes, winner flips {r['win_flips']}/{r['closest']} "
+                    f"({r['hits']} hits), occlusion flips {r['occ_flips']}/"
+                    f"{r['any_hit']}, max |dt| where winners agree "
+                    f"{r['max_abs_dt']:.3g} ({r['max_rel_dt']:.3g} of "
+                    f"max(|t|, 1)); kernel {r['ms']:.3f} ms warm, "
+                    f"{r['flushed_ms']:.3f} ms L2-flushed (event_ms, "
+                    f"{TC_EVENT_REPS} launches), plain {r['plain_ms']:.1f} ms "
+                    f"(host clock); bound {r['bound']:.4f} ms ({r['by']}: "
+                    f"{r['work']['tensor_ms']:.4f} ms of tensor work, "
+                    f"{r['work']['fp32_ms']:.4f} ms of FP32, "
+                    f"{r['work']['bytes_ms']:.4f} ms of bytes), "
+                    f"{r['bound'] / r['ms']:.2f} of it; NOREL moves "
+                    f"{r['norel_lanes_moved']} lanes")
+                if form == "bf16x6" and r["norel_lanes_moved"]:
+                    problems.append(f"K1tc bf16x6 {pop}: PRT_MESH_NOREL moved "
+                                    f"{r['norel_lanes_moved']} lanes")
+        mesh_brute._PRECISION_NAME = "highest"
+        for pop, b in pops.items():
+            args = (feat, clusters, b["origin"], b["direction"], b["t_init"],
+                    b["active"], b["any_hit"], b["exclude"])
+            k = mesh_brute.mesh_brute_kernel(*args)
+            k_n = mesh_brute.mesh_brute_kernel(*args, norel=True)
+            norel[pop] = dict(
+                bitwise=all(torch.equal(x, y) for x, y in zip(k, k_n)),
+                norel_ms=cuda_ms(lambda: mesh_brute.mesh_brute_kernel(
+                    *args, norel=True), 3))
+            if not norel[pop]["bitwise"]:
+                problems.append(f"K1 {pop}: PRT_MESH_NOREL is not bitwise")
+        log("  K1 under PRT_MESH_NOREL: " + "; ".join(
+            f"{k} {'bitwise' if v['bitwise'] else 'DIFFERS'} "
+            f"({v['norel_ms']:.3f} ms)" for k, v in norel.items()))
+
+        # PRT_MESH_FORCE_XLA: the plain twin on the card, no kernel
+        b = pops["camera"]
+        mesh_brute.mesh_brute_kernel.launches = 0
+        mesh_brute.mesh_brute_tc_kernel.launches = 0
+        os.environ["PRT_MESH_FORCE_XLA"] = "1"
+        try:
+            forced = mesh_brute.mesh_intersect(
+                feat, clusters, b["origin"], b["direction"], b["t_init"],
+                active=b["active"], any_hit=b["any_hit"], exclude=b["exclude"])
+            gate = mesh_brute.uses_kernel(b["origin"])
+        finally:
+            del os.environ["PRT_MESH_FORCE_XLA"]
+        twin = mesh_brute._intersect_xla(feat, clusters, b["origin"],
+                                         b["direction"], b["t_init"],
+                                         b["active"], exclude=b["exclude"])
+        force = dict(K1=mesh_brute.mesh_brute_kernel.launches,
+                     K1tc=mesh_brute.mesh_brute_tc_kernel.launches,
+                     uses_kernel=gate, bitwise=all(
+                         torch.equal(x, y) for x, y in zip(forced, twin)))
+        log(f"  PRT_MESH_FORCE_XLA on the camera population: {force}")
+        if force["K1"] or force["K1tc"] or gate or not force["bitwise"]:
+            problems.append(f"PRT_MESH_FORCE_XLA: {force}")
+        if problems:
+            fail("; ".join(problems))
+
+        # the frames: each form's mean radiance against highest's
+        cfg_b = dataclasses.replace(cfg, mesh_accel="brute")
+        cam = default_camera(side, side).pytree(dev)
+        frames = {}
+        mesh_brute._PRECISION_NAME = "highest"
+        img_h, counts, secs = tc_frame(cfg_b, scene, cam, side, spp)
+        mean_h = float(img_h.mean())
+        frames["highest"] = dict(mean=mean_h, seconds=secs, **counts)
+        main_tc = 0
+        for label in TC_FORMS:
+            table, form = tc_form(feat, label)
+            img, counts, secs = tc_frame(
+                cfg_b, dataclasses.replace(scene, bf_feat=table), cam, side,
+                spp)
+            main_tc += counts["K1tc"]
+            frames[label] = dict(
+                mean=float(img.mean()), seconds=secs,
+                bias=float(img.mean()) / mean_h - 1.0,
+                pixels_moved=int((img != img_h).any(-1).sum()), **counts)
+            if counts["K1tc"] == 0 or counts["K1"]:
+                fail(f"phase 28: the {label} frame launched {counts}")
+        # bf16x3 with the second pass: mesh_closest's calls counted
+        table, form = tc_form(feat, "bf16x3")
+        real, calls = intersect.mesh_closest, []
+
+        def counted(*a, **kw):
+            calls.append(None)
+            return real(*a, **kw)
+        intersect.mesh_closest = counted
+        try:
+            img, counts, secs = tc_frame(
+                dataclasses.replace(cfg_b, mesh_second_pass=True), scene, cam,
+                side, spp)
+        finally:
+            intersect.mesh_closest = real
+        main_tc += counts["K1tc"]
+        frames["bf16x3 second pass"] = dict(
+            mean=float(img.mean()), seconds=secs,
+            bias=float(img.mean()) / mean_h - 1.0, mesh_calls=len(calls),
+            **counts)
+        if counts["K1tc"] != 2 * len(calls) or counts["K1"]:
+            fail(f"phase 28: the second-pass frame launched {counts} for "
+                 f"{len(calls)} mesh calls")
+    finally:
+        mesh_brute._PRECISION_NAME = saved
+    for label, f in frames.items():
+        log(f"  frame {side}^2 x {spp} spp (regen, brute) {label}: mean "
+            f"{f['mean']:.6f}"
+            + (f", against highest {f['bias']:+.3%}" if "bias" in f else "")
+            + (f", {f['pixels_moved']} pixels moved" if "pixels_moved" in f
+               else "")
+            + f"; launches K1 {f['K1']}, K1tc {f['K1tc']}"
+            + (f" over {f['mesh_calls']} mesh calls" if "mesh_calls" in f
+               else "") + f"; {f['seconds']:.2f} s")
+    log(f"  phase 28 took {time.perf_counter() - t_phase:.1f} s; on {gpu_line}")
+    cam_pop = forms["bf16x6"]["camera"]
+    return dict(forms=forms, k1_norel=norel, force_xla=force, frames=frames,
+                launches=main_tc, ms=cam_pop["ms"],
+                flushed_ms=cam_pop["flushed_ms"],
+                plain_ms=cam_pop["plain_ms"], bound=cam_pop["bound"],
+                by=cam_pop["by"],
+                err=max(r["max_abs_dt"] for v in forms.values()
+                        for r in v.values()))
+
+
 def phase_k1_sweep(dev, pops):
     """--k1-sweep: K1_SWEEP's configurations on phase 3's populations."""
     from photorealistic_rendering_using_opencl_tpu_torch.scene.loader import load_scene
@@ -5828,13 +6217,16 @@ def main(argv=None) -> int:
     bdpt_bound = argv == ["--bdpt-bound"]
     regen_scan = argv == ["--regen-scan"]
     tools = argv == ["--tools"]
+    tc_only = argv == ["--tc"]
     times = argv[:1] == ["--kernel-times"] and (
         len(argv) == 1 or (len(argv) == 3 and argv[1] == "--port-root"))
     if argv and not (kernels_only or sweep or census or times or paths
-                     or walk or bdpt_bound or sharded or regen_scan or tools):
+                     or walk or bdpt_bound or sharded or regen_scan or tools
+                     or tc_only):
         fail(f"unknown arguments {argv}: none, --kernels-only, --k1-sweep, "
              "--op-census, --paths, --walk, --sharded, --bdpt-bound, "
-             "--regen-scan, --tools or --kernel-times [--port-root DIR]")
+             "--regen-scan, --tools, --tc or --kernel-times [--port-root "
+             "DIR]")
     root = os.path.abspath(argv[2]) if times and len(argv) == 3 else REPO
     if not os.path.isdir(os.path.join(root, PKG)):
         fail(f"the port package {PKG}/ is not in {root}")
@@ -5916,6 +6308,11 @@ def main(argv=None) -> int:
         log(f"partial run (--regen-scan: phases 1-2, 26 and the two tools), "
             f"{time.perf_counter() - t_start:.1f} s after the build; no "
             "result line")
+        return 0
+    if tc_only:
+        log("tensor-core forms: " + json.dumps(phase_tc(dev, gpu_line)))
+        done(28)
+        log("partial run (--tc: phases 1-2 and 28); no result line")
         return 0
     if tools:
         log("graft and tools: " + json.dumps(phase_graft_tools(dev, gpu_line)))
@@ -6004,6 +6401,8 @@ def main(argv=None) -> int:
     done(26)
     graft_tools = phase_graft_tools(dev, gpu_line)
     done(27)
+    tc = phase_tc(dev, gpu_line)
+    done(28)
 
     cam = k1_times["camera"]
     k1_paths = {"forward 512^2 x 8 spp (regen)": launches["K1"],
@@ -6177,6 +6576,36 @@ def main(argv=None) -> int:
                                ("visits_per_ray", "visits_per_ray"),
                                ("leaf_visits_per_ray", "leaf_visits_per_ray"),
                                ("tri_tests_per_ray", "tri_tests_per_ray"))}})
+    tc_paths = {f"phase 28 regen frames {TC_SIDE}^2 x {TC_SPP} spp, each "
+                "reduced form and bf16x3 with the second pass": tc["launches"],
+                "bench_kernel": t1["tc_launches"]}
+    kernels.append(
+        {"name": "K1tc mesh_brute_tc", "route": "cuda",
+         "source": f"{PKG}/csrc/mesh_brute_tc.cu",
+         "replaces": "photorealistic_rendering_using_opencl_tpu/ops/mesh_brute.py:339",
+         "replaces_note": "_make_kernel's split (:339-357) and bf16-table "
+                          "(:366-368) branches and their dot (:396-404)",
+         "launches": sum(tc_paths.values()), "launches_by_path": tc_paths,
+         "max_abs_err": tc["err"], "ms": tc["ms"],
+         "ms_l2_flushed": tc["flushed_ms"], "plain_ms": tc["plain_ms"],
+         "bound_ms": tc["bound"], "bound_by": tc["by"], "library_ms": None,
+         "library_note": "no PyTorch call computes a closest hit (see K1)",
+         "bound_note": "the larger of the bytes (fragments, boxes, rays "
+                       "once) over 3.35 TB/s and the operations: 80 T "
+                       "tensor-core operations (4 quantities x 10 non-zero "
+                       "features, multiply and add) a (ray, triangle) pair "
+                       "of the active lanes of the relevant blocks, any-hit "
+                       "lanes up to their first occluding tile, over 989 "
+                       "TFLOP/s (bf16), or the FP32 hit and slab tests over "
+                       "67 TFLOP/s, the larger",
+         "timed_by": "ms and ms_l2_flushed: event_ms (an event pair around "
+                     f"each of {TC_EVENT_REPS} launches behind a sleep, the "
+                     "latter after a 256 MB fill), form bf16x6 on phase 3's "
+                     "camera population; plain_ms: host clock around one "
+                     "call of intersect_reduced_plain, ending in "
+                     "torch.cuda.synchronize",
+         "by_form": tc["forms"], "frames": tc["frames"],
+         "k1_norel": tc["k1_norel"], "force_xla": tc["force_xla"]})
     for name, line in (("T2a", 57), ("T2b", 112)):
         k = t2[name]
         kernels.append(
@@ -6205,6 +6634,7 @@ def main(argv=None) -> int:
     log("sharded: " + json.dumps(shard))
     log("remat: " + json.dumps(remat))
     log("graft and tools: " + json.dumps(graft_tools))
+    log("tensor-core forms: " + json.dumps(tc))
     log(f"total {time.perf_counter() - t_start:.1f} s after the build")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(gpu_line, flush=True)

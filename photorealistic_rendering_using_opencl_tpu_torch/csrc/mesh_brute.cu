@@ -57,6 +57,10 @@
 // Plain FP32 FFMA throughout (no TF32/bf16 tensor cores, no fast math):
 // the single-pass reduced-precision form flips winners (see PERF.md).
 //
+// `norel` (PRT_MESH_NOREL, the reference's debug switch) skips the slab
+// tests: every live lane needs every tile.  The result is the same, since
+// the padded prune is conservative; only the work grows.
+//
 // Work counters: when `counters` is not null, the kernel also adds up, in
 // five 64-bit words, the (warp, tile) pairs a warp processed, the (ray,
 // tile) pairs whose ray needed the tile's triangles, the (ray, tile) slab
@@ -249,7 +253,7 @@ mesh_brute_kernel(const float* __restrict__ feat, long long row_stride,
                   const uint8_t* __restrict__ any_hit,
                   const int32_t* __restrict__ exclude, long long n,
                   float* __restrict__ out_t, int32_t* __restrict__ out_tri,
-                  unsigned long long* __restrict__ counters) {
+                  unsigned long long* __restrict__ counters, int norel) {
   // every tile's padded AABB, (lo.xyz, hi.x) (hi.yz, -, -), filled once a
   // block: the pad is a function of the cluster alone
   extern __shared__ float4 boxes[];
@@ -301,7 +305,9 @@ mesh_brute_kernel(const float* __restrict__ feat, long long row_stride,
     const unsigned live_mask = __ballot_sync(FULL, live);
     if (!live_mask) break;  // every lane of the warp is done
     bool need = false;
-    if (live) {
+    if (live && norel) {
+      need = true;
+    } else if (live) {
       // the padded slab test, bounded by the lane's current best
       const float4 a = boxes[2 * j], b = boxes[2 * j + 1];
       const float ax = (a.x - r.ox) * ix, bx = (a.w - r.ox) * ix;
@@ -348,7 +354,7 @@ int prt_mesh_brute(const float* feat, long long row_stride, int nt,
                    const uint8_t* active, const uint8_t* any_hit,
                    const int32_t* exclude, long long n, float* out_t,
                    int32_t* out_tri, unsigned long long* counters,
-                   void* stream) {
+                   int norel, void* stream) {
   // the tile boxes take 32 B a tile; above the default 48 KB a launch must
   // opt in, on the current device, which this sets on every such launch
   // (a few microseconds; 1,536 tiles and up).  The card's opt-in limit
@@ -363,7 +369,7 @@ int prt_mesh_brute(const float* feat, long long row_stride, int nt,
   mesh_brute_kernel<<<(unsigned)blocks, BLOCK_RAYS, smem,
                       (cudaStream_t)stream>>>(
       feat, row_stride, nt, clusters, origin, direction, t_init, active,
-      any_hit, exclude, n, out_t, out_tri, counters);
+      any_hit, exclude, n, out_t, out_tri, counters, norel);
   return (int)cudaGetLastError();
 }
 

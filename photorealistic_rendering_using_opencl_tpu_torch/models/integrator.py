@@ -425,7 +425,11 @@ def bounce_step(cfg: SceneConfig, scene: SceneData, state: PathState,
 
 
 class _SanitizeGrad(torch.autograd.Function):
-    """Identity whose backward replaces non-finite cotangents with zero."""
+    """Identity whose backward replaces non-finite cotangents with zero.
+    Under ``PRT_GRAD_DEBUG`` (read at each backward, as the reference reads
+    it) the backward also prints, for each floating cotangent, how many
+    entries it zeroed, in the reference's words, so that a real NaN cannot
+    hide behind the masked-lane cleanup."""
 
     @staticmethod
     def forward(ctx, *xs):
@@ -434,6 +438,14 @@ class _SanitizeGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *gs):
+        if os.environ.get("PRT_GRAD_DEBUG"):
+            for g in gs:
+                if g is not None and g.is_floating_point():
+                    rows = g.shape[0] if g.dim() else 1
+                    print(f"sanitize_grad: zeroed "
+                          f"{int((~torch.isfinite(g)).sum())} non-finite "
+                          f"cotangents in {rows}x{g.numel() // max(rows, 1)} "
+                          "leaf", flush=True)
         return tuple(None if g is None
                      else torch.nan_to_num(g, nan=0.0, posinf=0.0, neginf=0.0)
                      for g in gs)

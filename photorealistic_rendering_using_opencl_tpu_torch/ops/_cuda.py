@@ -44,7 +44,10 @@ _c_float = ctypes.c_float
 _SIGNATURES = {
     "prt_mesh_brute": [_c_vp, _c_ll, _c_int, _c_vp, _c_vp, _c_vp, _c_vp,
                        _c_vp, _c_vp, _c_vp, _c_ll, _c_vp, _c_vp, _c_vp,
-                       _c_vp],
+                       _c_int, _c_vp],
+    "prt_mesh_brute_tc": [_c_vp, _c_int, _c_vp, _c_vp, _c_vp, _c_vp, _c_vp,
+                          _c_vp, _c_vp, _c_ll, _c_vp, _c_vp, _c_int, _c_int,
+                          _c_vp],
     "prt_tonemap": [_c_vp, _c_vp, _c_int, _c_int, _c_int, _c_int, _c_int,
                     _c_float, _c_int, _c_vp],
     "prt_block_scan": [_c_vp, _c_vp, _c_vp, _c_ll, _c_int, _c_vp],

@@ -640,10 +640,13 @@ def mesh_closest(cfg: SceneConfig, scene: SceneData, origin, direction,
     the results are bitwise the unsorted ones, since the tile prune is
     conservative per lane.  The sort is stable (``torch.argsort`` is not by
     default; ``jnp.argsort`` is): camera rays share one origin cell, and
-    only a stable sort keeps them in pixel order within an octant.  The
-    reference's other TPU-only backstop, ``mesh_second_pass``, is not
-    ported: it repairs the TPU kernel's reduced-precision matmul, which K1
-    does not have.
+    only a stable sort keeps them in pixel order within an octant.
+
+    With ``cfg.mesh_second_pass`` and rays for a kernel, a lane whose winner
+    fails ``_validate_winner`` (a grazing false hit of the den-multiplied
+    test, which the reduced-precision forms make more of) is searched again
+    in lane order with that winner excluded, only such lanes active, and
+    the new winner validated in its turn: the reference's backstop.
     """
     if cfg.mesh_accel == "bvh":
         tm, tri, _, _ = bvh_traverse(scene, origin, direction, t_init,
@@ -676,6 +679,15 @@ def mesh_closest(cfg: SceneConfig, scene: SceneData, origin, direction,
         tri_raw = torch.empty_like(tri_raw).index_copy_(0, perm, tri_raw)
     tri = _validate_winner(scene.bf_tri_verts, tri_raw, origin, direction,
                            t_init)
+    if cfg.mesh_second_pass and mesh_brute.uses_kernel(origin):
+        rejected = (tri_raw >= 0) & (tri < 0)
+        act2 = rejected if active is None else rejected & active
+        _, tri2_raw = mesh_brute.mesh_intersect(
+            scene.bf_feat, scene.bf_clusters, origin, direction, t_init,
+            active=act2, any_hit=any_hit, exclude=tri_raw)
+        tri2 = _validate_winner(scene.bf_tri_verts, tri2_raw, origin,
+                                direction, t_init)
+        tri = torch.where(rejected, tri2, tri)
     return tm, tri, scene.bf_tri_verts, scene.bf_tri_normals
 
 

@@ -1,7 +1,8 @@
 """Exhaustive mesh intersection: the Moller-Trumbore coefficient table, its
-plain PyTorch twin, the CUDA kernel K1 (``csrc/mesh_brute.cu``), and K1's
-compute-only ablation T1 (``csrc/matmul_only.cu``) with the relevance pass
-that feeds it.
+plain PyTorch twin, the CUDA kernel K1 (``csrc/mesh_brute.cu``), the
+tensor-core kernel of the reduced-precision forms (``csrc/mesh_brute_tc.cu``)
+with its plain version, and K1's compute-only ablation T1
+(``csrc/matmul_only.cu``) with the relevance pass that feeds it.
 
 Port of ``photorealistic_rendering_using_opencl_tpu/ops/mesh_brute.py``.
 With e1 = p0-p1, e2 = p2-p0, n = e1 x e2 and the ray feature
@@ -14,19 +15,61 @@ table (pre-scaled by 1/|n|), grouped in tiles of TILE triangles with one
 AABB ("cluster") per tile.  The hit test is a sign test on products with
 den; only a winning pair pays the division.
 
+Arithmetic forms.  The reference's TPU kernel has three: f32 operands at
+MATMUL_PRECISION, the stacked-K hi/lo split (each operand cut into bf16
+parts by ``hi_lo_parts``, the ``FORM_TERMS`` pairs of parts stacked along
+the contracted dimension, one dot), and a bf16 coefficient table (the
+loader's ``PRT_MESH_DTYPE=bf16``).  ``PRT_MESH_PRECISION`` is read once, at
+import, into ``_PRECISION_NAME``; an unknown name raises, as the
+reference's dict lookup does.  ``PRT_MESH_NOREL`` and
+``PRT_MESH_FORCE_XLA`` are read at each call.  What each switch means:
+
+    switch          reference, TPU    reference, CPU   port, CPU  port, card
+    PRECISION unset bf16x6            XLA, f32         XLA, f32   K1 (FFMA)
+    highest         f32 passes        f32              f32        K1
+    bf16x6, bf16x3  split, T = 6 / 3  f32 (interpret:  f32        tensor-core
+                                      the split)                  kernel, the
+                                                                  split
+    default         one bf16 pass     f32              f32        tensor-core,
+                                                                  "bf16" on the
+                                                                  f32 table
+    DTYPE=bf16      bf16 table, no    bf16 table, f    as the     tensor-core,
+                    split (any name)  cast to bf16     reference  "bf16"
+
+The unset default is the one place where the port's name differs from the
+reference's: the reference calls its f32-exact split "bf16x6" and runs it
+off the TPU as XLA's f32 dot; the port's default is "highest", and on the
+card that is K1, bitwise what it was before the forms were ported.
+
 ``mesh_intersect`` dispatches on the device of its inputs: CPU tensors run
 ``_intersect_xla``, the plain twin of the reference's XLA path (a loop over
-tiles, each one matrix product); CUDA tensors launch K1 or raise
-(``uses_kernel`` says which).  Only the winning index leaves this module:
+tiles, each one matrix product); CUDA tensors launch K1 or the tensor-core
+kernel (by the table above) or raise.  ``PRT_MESH_FORCE_XLA`` runs
+``_intersect_xla`` on the card too, and ``uses_kernel`` is then False, as
+the reference's ``uses_pallas`` is: the ray sort and the second pass of
+``intersect.mesh_closest`` are off.  ``PRT_MESH_NOREL`` makes both kernels
+test every tile for every live lane (the reference's all-ones relevance);
+it changes nothing on the CPU.  Only the winning index leaves this module:
 callers re-derive exact t/u/v from it (ops/intersect.py: tri_reattach).
 
+``intersect_reduced_plain`` is the tensor-core kernel's plain version:
+what the reference's TPU kernel computes in a form, down to its tile
+prune.  In a reduced form the prune is part of the result (a false hit
+may lie outside its tile's box), so both follow the reference's
+``_block_relevance``: blocks of RELEVANCE_BLOCK rays in lane order,
+unpadded boxes, each lane's t_init.  The CPU path of ``mesh_intersect``
+does not use it.
+
 ``_block_relevance`` is the reference's XLA-side tile prune, which K1
-folds into itself; here it feeds only T1 (``matmul_only``), the
+folds into itself; here it feeds T1 (``matmul_only``), the
 microbenchmark's ablation that keeps K1's per-pair dot products and
-drops everything else (tools/bench_kernel.py).
+drops everything else (tools/bench_kernel.py), and the plain version of
+the tensor-core kernel.
 """
 from __future__ import annotations
 
+import os
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -43,6 +86,31 @@ BRUTE_MAX_TRIS = 32768
 # the brute backend carries meshes up to this size; beyond it the loader
 # packs only the BVH walk's tables (scene/loader.py)
 BRUTE_STREAM_MAX_TRIS = 262144
+# rays a relevance block of the reference's TPU kernel (its BLOCK): the
+# tensor-core kernel and its plain version prune tiles by blocks of these
+RELEVANCE_BLOCK = 256
+
+# the reference's PRT_MESH_PRECISION names, each with the tensor-core
+# kernel's form on the card (None: K1); see the module docstring
+_CARD_FORMS = {"default": "bf16", "bf16x3": "bf16x3", "bf16x6": "bf16x6",
+               "highest": None}
+_PRECISION_NAME = os.environ.get("PRT_MESH_PRECISION", "highest")
+if _PRECISION_NAME not in _CARD_FORMS:
+    raise KeyError(_PRECISION_NAME)
+# each reduced form's terms, (table part, ray part) pairs adding a_i . p_j
+# to the one dot: "bf16" is one pass of both operands in bf16; the split
+# forms are the reference's _SPLIT_TERMS (bf16x3 drops the ~2^-16-relative
+# terms, bf16x6 keeps every term above ~2^-24)
+FORM_TERMS = {
+    "bf16": ((0, 0),),
+    "bf16x3": ((0, 0), (1, 0), (0, 1)),
+    "bf16x6": ((0, 0), (1, 0), (2, 0), (0, 1), (1, 1), (0, 2)),
+}
+# the tensor-core kernel's form codes (csrc/mesh_brute_tc.cu)
+_FORM_CODES = {"bf16": 0, "bf16x3": 1, "bf16x6": 2}
+# columns of the ray pack (the reference's ROW_TINIT .. ROW_EXCLUDE rows)
+# that carry per-lane control values; the table's rows 10-15 are zero
+_PACK_TINIT, _PACK_ACTIVE, _PACK_ANYHIT, _PACK_EXCLUDE = 10, 11, 12, 13
 
 
 class BrutePack(NamedTuple):
@@ -109,7 +177,12 @@ def pack_brute(tri_verts: np.ndarray, tri_normals: np.ndarray,
 # ---------------------------------------------------------------------------
 
 def _tile_scores(f, a_tile, c):
-    """f [B,FEAT] x a_tile [FEAT,4C] -> per-pair t (inf when no hit)."""
+    """f [B,FEAT] x a_tile [FEAT,4C] -> per-pair t (inf when no hit).  A
+    bf16 table meets the features cast to bf16, as the reference's does:
+    bf16 x bf16 products are exact in f32, and the dot sums them in f32."""
+    if a_tile.dtype == torch.bfloat16:
+        f = f.to(torch.bfloat16).float()
+        a_tile = a_tile.float()
     out = torch.matmul(f, a_tile)
     den = out[:, 0 * c:1 * c]
     tden = out[:, 1 * c:2 * c]
@@ -168,6 +241,139 @@ def _intersect_xla(feat, clusters, origin, direction, t_init, active,
 
 
 # ---------------------------------------------------------------------------
+# The reduced-precision forms: the plain version of the tensor-core kernel
+# ---------------------------------------------------------------------------
+
+def hi_lo_parts(x, n):
+    """``x`` cut into ``n`` bf16 parts, each rounded to nearest-even from
+    what the parts before it left: x ~ parts[0] + parts[1] + ... (the
+    reference's ``_hi_lo_parts``)."""
+    parts = []
+    rem = x
+    for _ in range(n):
+        h = rem.to(torch.bfloat16)
+        parts.append(h)
+        rem = rem - h.float()
+    return parts
+
+
+def reduced_form(feat) -> str | None:
+    """The tensor-core kernel's form for ``feat`` on the card: "bf16" for a
+    bf16 table whatever the precision (the reference turns its split off
+    for one), else ``_PRECISION_NAME``'s form; None for K1."""
+    if feat.dtype == torch.bfloat16:
+        return "bf16"
+    return _CARD_FORMS[_PRECISION_NAME]
+
+
+def _ray_pack(origin, direction, t_init, active, any_hit, exclude):
+    """The reference's ray pack, lanes major: [N, FEAT] f32, the features
+    of ``_ray_features`` with t_init, the active and any-hit flags and the
+    excluded triangle written into _PACK_TINIT.._PACK_EXCLUDE."""
+    pack = _ray_features(origin, direction)
+    pack[:, _PACK_TINIT] = t_init
+    pack[:, _PACK_ACTIVE] = active.float()
+    pack[:, _PACK_ANYHIT] = any_hit.float()
+    pack[:, _PACK_EXCLUDE] = exclude.float()
+    return pack
+
+
+def _form_operands(feat, pack, form):
+    """-> (F [N, 16T] ray parts, A [16T, 4*Tpad] table parts, both bf16
+    values held in f32, stacked term by term; the control columns as the
+    kernel reads them).  In a split form the control values are rebuilt
+    from the ray's distinct parts, as the reference's kernel rebuilds
+    them: bf16x3's two parts round t_init."""
+    terms = FORM_TERMS[form]
+    n_ray = max(j for _, j in terms) + 1
+    if form == "bf16":
+        pp = [pack.to(torch.bfloat16)]
+        ap = [feat.to(torch.bfloat16)]
+        ctrl = pack
+    else:
+        if feat.dtype != torch.float32:
+            raise TypeError(f"form {form} splits an f32 table, not "
+                            f"{feat.dtype}")
+        pp = hi_lo_parts(pack, n_ray)
+        ap = hi_lo_parts(feat, table_parts(form))
+        ctrl = pp[0].float()
+        for part in pp[1:]:
+            ctrl = ctrl + part.float()
+    f = torch.cat([pp[j].float() for _, j in terms], dim=1)
+    a = torch.cat([ap[i].float() for i, _ in terms], dim=0)
+    return f, a, ctrl
+
+
+def intersect_reduced_plain(feat, clusters, origin, direction, t_init, active,
+                            any_hit, exclude, form, norel=False):
+    """What the reference's TPU kernel computes in ``form`` ("bf16",
+    "bf16x3" or "bf16x6"), in plain PyTorch: the plain version of the
+    tensor-core kernel -> (t [N], tri [N] int32).
+
+    Every bf16 part is rounded to nearest-even (``hi_lo_parts``); each
+    tile's four quantities are one f32 product of the stacked parts, whose
+    bf16 x bf16 products are exact, summed in f32 over the stacked dimension
+    in order; the control values are the ones the kernel reads
+    (``_form_operands``).  Tiles are taken in table order and only for
+    blocks of RELEVANCE_BLOCK lanes whose relevance bit is set (all of them
+    with ``norel``), every lane of such a block tested; a strictly smaller t
+    wins across tiles, the lowest index within one; an inactive lane never
+    records a hit, an any-hit lane stops after its first occluding tile
+    with that tile's winner, a lane's excluded triangle never hits; t
+    falls back to the (rebuilt) t_init.  "default" on the card is form
+    "bf16" of the f32 table.
+
+    The control columns enter the product against the table's zero rows,
+    as the reference's pack does: a t_init whose parts are not finite (inf,
+    or a value past bf16's range) makes every quantity of its lane NaN, so
+    the lane records no hit (the split forms' rebuilt t_init is then NaN).
+    The kernel keeps the control values out of its products and gives such
+    a lane no hit itself."""
+    n = origin.shape[0]
+    dev = origin.device
+    c = TILE
+    nt = clusters.shape[0]
+    t_init = _lane_tensor(t_init, n, torch.float32, dev, None)
+    active = _lane_tensor(active, n, torch.bool, dev, True)
+    any_hit = _lane_tensor(any_hit, n, torch.bool, dev, False)
+    exclude = _lane_tensor(exclude, n, torch.int32, dev, -1)
+    if norel:
+        words = torch.full((-(-n // RELEVANCE_BLOCK), -(-nt // 32)), -1,
+                           dtype=torch.int32, device=dev)
+    else:
+        words = relevance_words(clusters, origin, direction, t_init, active,
+                                RELEVANCE_BLOCK)
+    f, a, ctrl = _form_operands(feat, _ray_pack(origin, direction, t_init,
+                                                active, any_hit, exclude),
+                                form)
+    tinit = ctrl[:, _PACK_TINIT]
+    act = ctrl[:, _PACK_ACTIVE] > 0.5
+    anyh = ctrl[:, _PACK_ANYHIT] > 0.5
+    excl = ctrl[:, _PACK_EXCLUDE]
+    best_t = torch.where(act, tinit, -torch.inf)
+    best_i = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    rowf = torch.arange(c, dtype=torch.float32, device=dev)
+    block_of = torch.arange(n, device=dev) // RELEVANCE_BLOCK
+    w = words.to(torch.int64) & 0xFFFFFFFF
+    for j in range(nt):
+        lanes = ((w[:, j // 32] >> (j % 32)) & 1).bool()[block_of]
+        idx = torch.nonzero(lanes).flatten()
+        if idx.numel() == 0:
+            continue
+        score = _tile_scores(f[idx], a[:, j * 4 * c:(j + 1) * 4 * c], c)
+        score = torch.where(rowf + float(j * c) == excl[idx, None],
+                            torch.inf, score)
+        tmin, targ = torch.min(score, dim=1)
+        cur_t, cur_i = best_t[idx], best_i[idx]
+        better = tmin < cur_t
+        best_t[idx] = torch.where(
+            better, torch.where(anyh[idx], -torch.inf, tmin), cur_t)
+        best_i[idx] = torch.where(better, targ.to(torch.int32) + j * c, cur_i)
+    got = best_i >= 0
+    return torch.where(got & torch.isfinite(best_t), best_t, tinit), best_i
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernel K1
 # ---------------------------------------------------------------------------
 
@@ -181,13 +387,14 @@ class _MeshBruteKernel:
     pairs a warp processed, (ray, tile) pairs whose ray needed the tile's
     triangles, (ray, tile) slab tests, and the (warp, tile) and (ray, tile)
     pairs of the first two run in per-thread mode); the render path passes
-    none."""
+    none.  ``norel`` (``PRT_MESH_NOREL``) skips the slab tests: every live
+    lane tests every tile."""
 
     def __init__(self):
         self.launches = 0
 
     def __call__(self, feat, clusters, origin, direction, t_init, active,
-                 any_hit, exclude, counters=None):
+                 any_hit, exclude, counters=None, norel=False):
         dev = origin.device
         n = origin.shape[0]
         nt = clusters.shape[0]
@@ -217,7 +424,7 @@ class _MeshBruteKernel:
                 active.data_ptr(), any_hit.data_ptr(), exclude.data_ptr(), n,
                 out_t.data_ptr(), out_tri.data_ptr(),
                 None if counters is None else counters.data_ptr(),
-                _cuda.stream_handle(origin))
+                int(norel), _cuda.stream_handle(origin))
         _cuda.check(code, "prt_mesh_brute")
         self.launches += 1
         return out_t, out_tri
@@ -226,13 +433,135 @@ class _MeshBruteKernel:
 mesh_brute_kernel = _MeshBruteKernel()
 
 
+# ---------------------------------------------------------------------------
+# The tensor-core kernel of the reduced-precision forms
+# ---------------------------------------------------------------------------
+
+TC_CHUNK = 16  # triangles an mma's A fragment holds (its 16 rows)
+# the kernel keeps a block's relevance bits in shared memory (256 words)
+TC_MAX_TILES = 8192
+
+
+def table_parts(form):
+    """The bf16 parts of the table that ``form``'s terms use."""
+    return max(i for i, _ in FORM_TERMS[form]) + 1
+
+
+def _fragment_index():
+    """[32, 8] (row, column) of the 8 bf16 values lane l of a warp holds of
+    an m16n8k16 A fragment, in register order: a0-a7 = (g, 2t), (g, 2t+1),
+    (g+8, 2t), (g+8, 2t+1), (g, 2t+8), (g, 2t+9), (g+8, 2t+8), (g+8, 2t+9)
+    with g = l // 4, t = l % 4 (PTX ISA, mma.m16n8k16 .bf16)."""
+    lane = torch.arange(32)
+    g, t = lane // 4, lane % 4
+    rows = torch.stack([g, g, g + 8, g + 8, g, g, g + 8, g + 8], dim=1)
+    cols = torch.stack([2 * t, 2 * t + 1, 2 * t, 2 * t + 1,
+                        2 * t + 8, 2 * t + 9, 2 * t + 8, 2 * t + 9], dim=1)
+    return rows, cols
+
+
+def tc_fragments(feat, n_parts):
+    """The coefficient table cut into ``n_parts`` bf16 parts
+    (``hi_lo_parts``; one part of a bf16 table is the table) and laid out
+    as the tensor-core kernel loads its A fragments -> [n_parts, nt, 8, 4,
+    32, 8] bf16: for each part, tile, chunk of TC_CHUNK triangles and
+    quantity q (den, t*den, u*den, v*den), the 16 bytes lane l holds of
+    the 16 x 16 fragment (row: the chunk's triangle, column: the ray
+    feature)."""
+    k, cols4 = feat.shape
+    nt = cols4 // (4 * TILE)
+    src = feat if feat.dtype == torch.bfloat16 else feat.float()
+    parts = torch.stack(hi_lo_parts(src, n_parts))  # [P, 16, 4*Tpad]
+    a = parts.reshape(n_parts, k, nt, 4, TILE // TC_CHUNK, TC_CHUNK)
+    a = a.permute(0, 2, 4, 3, 5, 1)  # [P, nt, chunk, q, row, feature]
+    rows, cols = _fragment_index()
+    return a[..., rows.to(feat.device), cols.to(feat.device)].contiguous()
+
+
+# each table's fragments, made once per table and number of parts (the
+# reference hoists its table split out of the render loop the same way):
+# id(table) -> (a weak reference to it, its _version, {parts: fragments});
+# an entry leaves with its table, and an in-place change of the table
+# makes its fragments anew
+_FRAGMENTS = {}
+
+
+def form_fragments(feat, form):
+    """``tc_fragments`` of ``feat`` for ``form``, cached per table."""
+    n_parts = table_parts(form)
+    key = id(feat)
+    entry = _FRAGMENTS.get(key)
+    if entry is None or entry[0]() is not feat or entry[1] != feat._version:
+        entry = (weakref.ref(feat), feat._version, {})
+        _FRAGMENTS[key] = entry
+        weakref.finalize(feat, _FRAGMENTS.pop, key, None)
+    if n_parts not in entry[2]:
+        entry[2][n_parts] = tc_fragments(feat, n_parts)
+    return entry[2][n_parts]
+
+
+class _MeshBruteTcKernel:
+    """Wrapper of ``prt_mesh_brute_tc`` (csrc/mesh_brute_tc.cu), the
+    reduced-precision forms on the tensor cores; its plain version is
+    ``intersect_reduced_plain``.  ``launches`` counts kernel launches and
+    nothing else.  ``frag`` is ``form_fragments(feat, form)``."""
+
+    def __init__(self):
+        self.launches = 0
+
+    def __call__(self, frag, clusters, origin, direction, t_init, active,
+                 any_hit, exclude, form, norel=False):
+        dev = origin.device
+        n = origin.shape[0]
+        nt = clusters.shape[0]
+        if form not in _FORM_CODES:
+            raise ValueError(f"form {form!r}: one of {sorted(_FORM_CODES)}")
+        n_parts = table_parts(form)
+        if nt > TC_MAX_TILES:
+            raise ValueError(f"{nt} tiles: the kernel takes at most "
+                             f"{TC_MAX_TILES}")
+        _cuda.require(frag, "frag", torch.bfloat16,
+                      (n_parts, nt, TILE // TC_CHUNK, 4, 32, 8), dev)
+        if frag.data_ptr() % 16:
+            raise ValueError("frag: the kernel loads it in 16-byte pieces; "
+                             "its data must start on a 16-byte boundary")
+        _cuda.require(clusters, "clusters", torch.float32, (nt, 8), dev)
+        _cuda.require(origin, "origin", torch.float32, (n, 3), dev)
+        _cuda.require(direction, "direction", torch.float32, (n, 3), dev)
+        _cuda.require(t_init, "t_init", torch.float32, (n,), dev)
+        _cuda.require(active, "active", torch.bool, (n,), dev)
+        _cuda.require(any_hit, "any_hit", torch.bool, (n,), dev)
+        _cuda.require(exclude, "exclude", torch.int32, (n,), dev)
+        out_t = torch.empty((n,), dtype=torch.float32, device=dev)
+        out_tri = torch.empty((n,), dtype=torch.int32, device=dev)
+        if n == 0:
+            return out_t, out_tri
+        lib = _cuda.LIBRARY.get()
+        with _cuda.on_device(origin):
+            code = lib.prt_mesh_brute_tc(
+                frag.data_ptr(), nt, clusters.data_ptr(), origin.data_ptr(),
+                direction.data_ptr(), t_init.data_ptr(), active.data_ptr(),
+                any_hit.data_ptr(), exclude.data_ptr(), n, out_t.data_ptr(),
+                out_tri.data_ptr(), _FORM_CODES[form], int(norel),
+                _cuda.stream_handle(origin))
+        _cuda.check(code, "prt_mesh_brute_tc")
+        self.launches += 1
+        return out_t, out_tri
+
+
+mesh_brute_tc_kernel = _MeshBruteTcKernel()
+
+
 def uses_kernel(x: torch.Tensor) -> bool:
-    """True when ``mesh_intersect`` launches K1 for tensors on ``x``'s
-    device; callers gate what only the kernel needs (the ray sort of
-    ``intersect.mesh_closest``) on it, as the reference gates its on
-    ``uses_pallas()``.  The twin on the CPU scans every tile per lane, so
-    lane order cannot change its work."""
-    return x.device.type == "cuda"
+    """True when ``mesh_intersect`` launches a kernel (K1 or the
+    tensor-core kernel) for tensors on ``x``'s device; callers gate what
+    only the kernels need (the ray sort and the second pass of
+    ``intersect.mesh_closest``) on it, as the reference gates them on
+    ``uses_pallas()``, which ``PRT_MESH_FORCE_XLA`` turns off there and
+    here.  The twin on the CPU scans every tile per lane, so lane order
+    cannot change its work."""
+    return (x.device.type == "cuda"
+            and not os.environ.get("PRT_MESH_FORCE_XLA"))
 
 
 def _lane_tensor(x, n, dtype, device, default):
@@ -251,28 +580,49 @@ def mesh_intersect(feat, clusters, origin, direction, t_init, active=None,
     Returns (t [N], tri [N] int32 index into the compact bf arrays, -1 on
     miss); t falls back to t_init when no triangle beats it.  ``any_hit``
     may be a bool or a per-lane [N] bool tensor: for any-hit lanes only
-    tri >= 0 (occluded) is meaningful (the kernel stops them at their first
-    occluding tile and returns t_init).  Detached.  CPU tensors run the
-    plain twin; CUDA tensors launch K1, with no fallback.
+    tri >= 0 (occluded) is meaningful (the kernels stop them at their first
+    occluding tile and return t_init).  Detached.  CPU tensors run the
+    plain twin, and so do CUDA tensors under ``PRT_MESH_FORCE_XLA``; else
+    CUDA tensors launch K1 or, in a reduced-precision form
+    (``reduced_form``), the tensor-core kernel, with no fallback.
+    ``PRT_MESH_NOREL`` reaches either kernel as its flag.
     """
     origin = origin.detach()
     direction = direction.detach()
     if isinstance(t_init, torch.Tensor):
         t_init = t_init.detach()
-    if origin.device.type == "cpu":
+    if origin.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"mesh_intersect: unsupported device {origin.device}")
+    # the device and the switch themselves, as the reference tests them
+    # here beside uses_pallas (which callers' tests may force open)
+    if (origin.device.type == "cpu"
+            or os.environ.get("PRT_MESH_FORCE_XLA")):
         return _intersect_xla(feat, clusters, origin, direction, t_init,
                               active, exclude=exclude)
-    if origin.device.type != "cuda":
-        raise ValueError(f"mesh_intersect: unsupported device {origin.device}")
+    return _launch(feat, clusters, origin, direction, t_init, active,
+                   any_hit, exclude)
+
+
+def _launch(feat, clusters, origin, direction, t_init, active, any_hit,
+            exclude):
+    """``mesh_intersect``'s kernel launch: K1 for the f32 form, the
+    tensor-core kernel for ``reduced_form``'s, ``PRT_MESH_NOREL`` (read
+    here, at each call) as the kernel's flag."""
     n = origin.shape[0]
     dev = origin.device
-    return mesh_brute_kernel(
-        feat.contiguous(), clusters.contiguous(), origin.contiguous(),
-        direction.contiguous(),
-        _lane_tensor(t_init, n, torch.float32, dev, None),
-        _lane_tensor(active, n, torch.bool, dev, True),
-        _lane_tensor(any_hit, n, torch.bool, dev, False),
-        _lane_tensor(exclude, n, torch.int32, dev, -1))
+    lanes = (origin.contiguous(), direction.contiguous(),
+             _lane_tensor(t_init, n, torch.float32, dev, None),
+             _lane_tensor(active, n, torch.bool, dev, True),
+             _lane_tensor(any_hit, n, torch.bool, dev, False),
+             _lane_tensor(exclude, n, torch.int32, dev, -1))
+    norel = bool(os.environ.get("PRT_MESH_NOREL"))
+    form = reduced_form(feat)
+    if form is None:
+        return mesh_brute_kernel(feat.contiguous(), clusters.contiguous(),
+                                 *lanes, norel=norel)
+    return mesh_brute_tc_kernel(form_fragments(feat, form),
+                                clusters.contiguous(), *lanes, form,
+                                norel=norel)
 
 
 # ---------------------------------------------------------------------------

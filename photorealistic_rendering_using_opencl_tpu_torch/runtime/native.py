@@ -7,7 +7,8 @@ with two comments naming the OpenCL reference's files by their path in
 that project.  It is compiled
 lazily with g++ into this package's own build directory (``_build/``,
 listed in .gitignore) and rebuilt when the source's hash changes.  Where
-g++ is missing, scene/bvh_build.py and scene/obj.py use their Python
+g++ is missing, or ``PRT_NO_NATIVE`` is set (read at each call, as the
+reference reads it), scene/bvh_build.py and scene/obj.py use their Python
 versions.
 """
 from __future__ import annotations
@@ -95,7 +96,10 @@ _NATIVE = _NativeLib()
 
 
 def get_lib():
-    """Load (building if needed) the native library; None if unavailable."""
+    """Load (building if needed) the native library; None if unavailable
+    or when ``PRT_NO_NATIVE`` asks for the Python builds."""
+    if os.environ.get("PRT_NO_NATIVE"):
+        return None
     return _NATIVE.get()
 
 

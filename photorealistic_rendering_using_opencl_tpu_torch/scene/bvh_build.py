@@ -39,7 +39,7 @@ def build_bvh(tri_verts: np.ndarray) -> FlatBVH:
     """tri_verts [T,3,3] -> flat threaded BVH (sweep SAH, leaf<=LEAF_SIZE).
 
     Uses the native library (runtime/native.py) when it builds, else the
-    Python implementation.
+    Python implementation; set PRT_NO_NATIVE=1 to force the latter.
     """
     from photorealistic_rendering_using_opencl_tpu_torch.runtime import native
     res = native.build_bvh_native(tri_verts)

@@ -39,6 +39,17 @@ from photorealistic_rendering_using_opencl_tpu_torch.utils.device import (
 CPU_BRUTE_MAX_TRIS = 2048
 
 
+def _mesh_table_dtype() -> torch.dtype:
+    """The brute coefficient table's dtype: float32, or bfloat16 under
+    ``PRT_MESH_DTYPE=bf16`` (the reference's switch, read at each load).
+    A bf16 table runs the reduced-precision form "bf16" on the card (the
+    tensor-core kernel) and the reference's bf16 dot on the CPU
+    (ops/mesh_brute.py)."""
+    if os.environ.get("PRT_MESH_DTYPE", "") == "bf16":
+        return torch.bfloat16
+    return torch.float32
+
+
 def _pick_mesh_accel(n_tris: int, device: torch.device) -> str:
     """The mesh backend for a mesh of ``n_tris`` triangles on ``device``.
 
@@ -342,6 +353,10 @@ def build_scene(doc: dict, models_dir: str | None = None,
     data = empty_scene_data(n_objects=n_obj, n_lights=1, device=device)
     for name, value in _np_leaves_to_torch(leaves, device).items():
         setattr(data, name, value)
+    if brute is not None:
+        # the table in the dtype PRT_MESH_DTYPE asks for (rounded to
+        # nearest-even, as the reference's asarray rounds it)
+        data.bf_feat = data.bf_feat.to(_mesh_table_dtype())
     if env_map is not None:
         data.env_map = torch.as_tensor(np.asarray(env_map, np.float32),
                                        device=device).contiguous()

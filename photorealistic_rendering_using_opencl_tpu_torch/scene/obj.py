@@ -13,7 +13,7 @@ def load_obj(path: str):
     """Returns (verts[T,3,3], normals[T,3,3]) float32 triangle soup.
 
     Uses the native importer (runtime/native.py) when it builds, else the
-    Python implementation.
+    Python implementation; set PRT_NO_NATIVE=1 to force the latter.
     """
     from photorealistic_rendering_using_opencl_tpu_torch.runtime import native
     res = native.load_obj_native(path)

@@ -148,9 +148,11 @@ class SceneConfig:
     # only for its TPU kernel; a brute-only setting (the walk ignores it).  The loader sets it above BRUTE_MAX_TRIS
     # triangles, as the reference's does.
     mesh_sort_rays: bool = False
-    # Kept for field parity with the reference and IGNORED by the port: a
-    # backstop of the TPU kernel's reduced-precision matmul, which K1 does
-    # not have.
+    # Search again the lanes whose winner fails validation, with that
+    # winner excluded (ops/intersect.py: mesh_closest); only where a mesh
+    # kernel runs, as the reference does only for its TPU kernel: a
+    # backstop of the reduced-precision forms (PRT_MESH_PRECISION,
+    # PRT_MESH_DTYPE).
     mesh_second_pass: bool = False
 
     # gradients w.r.t. the mesh vertex/normal tables (forward: no effect)

@@ -1190,3 +1190,146 @@ def test_dryrun_multichip_over_nccl(cuda, capfd):
     dryrun_multichip(2)
     out = capfd.readouterr().out
     assert "dryrun_multichip(2): loss=" in out and "backend=nccl" in out
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core kernel of K1's reduced-precision forms
+# ---------------------------------------------------------------------------
+
+def _cornell_hi_population(dev, pop):
+    """cornell_hi's tables and one of chip_smoke.py's phase 3 populations
+    (524,288 merged closest and any-hit lanes, inactive lanes mixed in)."""
+    cs = _chip_smoke()
+    _, scene = load_scene(os.path.join(REPO, "scenes/cornell_hi.json"),
+                          models_dir=os.path.join(REPO, "scenes/assets"),
+                          device=dev)
+    return scene, cs.k1_populations(scene, dev)[pop]
+
+
+def _tc_lanes(b):
+    return (b["origin"], b["direction"], b["t_init"], b["active"],
+            b["any_hit"], b["exclude"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", list(_chip_smoke().TC_FORMS))
+def test_tc_kernel_matches_plain(cuda, monkeypatch, label):
+    """The tensor-core kernel in each form, through ``mesh_intersect`` as
+    the switches pick it, against ``intersect_reduced_plain`` on the card:
+    at most 1e-5 winner flips a closest ray and occlusion flips an any-hit
+    ray (K1's bound), t within chip_smoke.TC_DT_REL of max(|t|, 1) where
+    the closest winners agree, inactive and any-hit lanes' t equal, the
+    kernel launched once and K1 not at all."""
+    cs = _chip_smoke()
+    name, bf16 = cs.TC_FORMS[label]
+    monkeypatch.setattr(mesh_brute, "_PRECISION_NAME", name)
+    scene, b = _cornell_hi_population(cuda, "random")
+    feat = scene.bf_feat.to(torch.bfloat16) if bf16 else scene.bf_feat
+    form = mesh_brute.reduced_form(feat)
+    lanes = _tc_lanes(b)
+    k1, tc = mesh_brute.mesh_brute_kernel.launches, \
+        mesh_brute.mesh_brute_tc_kernel.launches
+    t, tri = mesh_brute.mesh_intersect(
+        feat, scene.bf_clusters, *lanes[:3], active=lanes[3],
+        any_hit=lanes[4], exclude=lanes[5])
+    assert mesh_brute.mesh_brute_tc_kernel.launches == tc + 1
+    assert mesh_brute.mesh_brute_kernel.launches == k1
+    tp, trip = mesh_brute.intersect_reduced_plain(
+        feat, scene.bf_clusters, *lanes, form)
+    act, anyh = b["active"], b["any_hit"]
+    closest, anyhit = act & ~anyh, act & anyh
+    assert int(((tri != trip) & closest).sum()) <= 1e-5 * int(closest.sum())
+    assert int(((tri >= 0) != (trip >= 0))[anyhit].sum()) <= \
+        1e-5 * int(anyhit.sum())
+    assert cs.tc_dt(t, tp, closest & (tri == trip) & (tri >= 0))[1] <= \
+        cs.TC_DT_REL
+    assert torch.equal(t[~closest], tp[~closest])
+    assert torch.equal(tri[~act], trip[~act])
+    assert int((trip[closest] >= 0).sum()) > 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", list(_chip_smoke().TC_FORMS))
+def test_tc_nonfinite_t_init_as_plain(cuda, monkeypatch, label):
+    """t_init = inf, or a finite value past bf16's range, on every fifth
+    lane: the kernel records no hit there, as its plain version does (whose
+    products turn NaN there, as the reference's do), and returns the plain
+    version's t; the other lanes still hit."""
+    name, bf16 = _chip_smoke().TC_FORMS[label]
+    monkeypatch.setattr(mesh_brute, "_PRECISION_NAME", name)
+    bp, (feat, clusters, _) = _tables(cuda)
+    if bf16:
+        feat = feat.to(torch.bfloat16)
+    form = mesh_brute.reduced_form(feat)
+    lanes = _batch("camera", bp, cuda)
+    lane = torch.arange(lanes[0].shape[0], device=cuda)
+    odd = lane % 5 == 0
+    lanes[2] = torch.where(odd, torch.where(lane % 2 == 0, torch.inf,
+                                            3.4e38), lanes[2])
+    t, tri = mesh_brute.mesh_brute_tc_kernel(
+        mesh_brute.form_fragments(feat, form), clusters, *lanes, form)
+    tp, trip = mesh_brute.intersect_reduced_plain(feat, clusters, *lanes,
+                                                  form)
+    assert bool((trip[odd] == -1).all()) and bool((tri[odd] == -1).all())
+    torch.testing.assert_close(t[odd], tp[odd], rtol=0, atol=0,
+                               equal_nan=True)
+    assert int((tri[~odd] >= 0).sum()) > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pop", ["camera", "surface"])
+def test_tc_and_k1_norel_bitwise(cuda, monkeypatch, pop):
+    """PRT_MESH_NOREL reaches both kernels: every live lane tests every
+    tile, and the results are bitwise the pruned ones for K1 and for the
+    tensor-core kernel in bf16x6 (f32-exact, so the prune cannot drop a
+    hit)."""
+    scene, b = _cornell_hi_population(cuda, pop)
+    lanes = _tc_lanes(b)
+    for name in ("highest", "bf16x6"):
+        monkeypatch.setattr(mesh_brute, "_PRECISION_NAME", name)
+        monkeypatch.delenv("PRT_MESH_NOREL", raising=False)
+        pruned = mesh_brute.mesh_intersect(
+            scene.bf_feat, scene.bf_clusters, *lanes[:3], active=lanes[3],
+            any_hit=lanes[4], exclude=lanes[5])
+        monkeypatch.setenv("PRT_MESH_NOREL", "1")
+        every = mesh_brute.mesh_intersect(
+            scene.bf_feat, scene.bf_clusters, *lanes[:3], active=lanes[3],
+            any_hit=lanes[4], exclude=lanes[5])
+        assert all(torch.equal(x, y) for x, y in zip(pruned, every)), name
+
+
+@pytest.mark.cuda
+def test_force_xla_runs_the_twin_on_card(cuda, monkeypatch):
+    """PRT_MESH_FORCE_XLA: ``mesh_intersect`` runs the plain twin on the
+    card, no kernel launches, ``uses_kernel`` is False, and the result is
+    bitwise the twin's, in every precision."""
+    bp, (feat, clusters, _) = _tables(cuda)
+    lanes = _batch("random", bp, cuda)
+    monkeypatch.setenv("PRT_MESH_FORCE_XLA", "1")
+    assert not mesh_brute.uses_kernel(lanes[0])
+    want = mesh_brute._intersect_xla(feat, clusters, *lanes[:4],
+                                     exclude=lanes[5])
+    for name in ("highest", "bf16x3", "default"):
+        monkeypatch.setattr(mesh_brute, "_PRECISION_NAME", name)
+        k1, tc = mesh_brute.mesh_brute_kernel.launches, \
+            mesh_brute.mesh_brute_tc_kernel.launches
+        got = mesh_brute.mesh_intersect(feat, clusters, *lanes[:3],
+                                        active=lanes[3], any_hit=lanes[4],
+                                        exclude=lanes[5])
+        assert mesh_brute.mesh_brute_kernel.launches == k1
+        assert mesh_brute.mesh_brute_tc_kernel.launches == tc
+        assert all(torch.equal(x, y) for x, y in zip(got, want)), name
+
+
+@pytest.mark.cuda
+def test_tc_wrapper_validates_arguments(cuda):
+    bp, (feat, clusters, _) = _tables(cuda)
+    lanes = _batch("random", bp, cuda)
+    frag = mesh_brute.form_fragments(feat, "bf16x3")
+    with pytest.raises(TypeError, match="frag"):
+        mesh_brute.mesh_brute_tc_kernel(frag.float(), clusters, *lanes,
+                                        "bf16x3")
+    with pytest.raises(ValueError, match="frag"):
+        mesh_brute.mesh_brute_tc_kernel(frag, clusters, *lanes, "bf16x6")
+    with pytest.raises(ValueError, match="form"):
+        mesh_brute.mesh_brute_tc_kernel(frag, clusters, *lanes, "bf16x2")

@@ -1,0 +1,552 @@
+"""K1's reduced-precision forms on the CPU: the plain version of the
+tensor-core kernel (``mesh_brute.intersect_reduced_plain``) against the JAX
+package's TPU kernel in interpret mode (the split forms) and its XLA path
+(the bf16 table); ``mesh_intersect`` under every switch against the JAX
+package's on the CPU; the switches' dispatch to the kernels (a stand-in
+library); the fragments the kernel loads; and ``mesh_second_pass`` against
+the JAX package's.  The kernel itself runs in tests/test_torch_cuda.py.
+
+Winners must be equal; a lane may part only at a tie the test shows (both
+candidates' scores within 2 float32 ulp), at most 1e-4 of a population.
+"""
+import contextlib
+import dataclasses
+import os
+import subprocess
+import sys
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from photorealistic_rendering_using_opencl_tpu.ops import intersect as j_isect
+from photorealistic_rendering_using_opencl_tpu.ops import mesh_brute as j_mb
+from photorealistic_rendering_using_opencl_tpu.scene import bvh_build as j_bvh
+from photorealistic_rendering_using_opencl_tpu.scene import loader as j_loader
+from photorealistic_rendering_using_opencl_tpu.scene.obj import make_icosphere
+from photorealistic_rendering_using_opencl_tpu_torch.ops import (
+    _cuda, intersect, mesh_brute,
+)
+from photorealistic_rendering_using_opencl_tpu_torch.scene import loader
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+N = 700  # two whole relevance blocks of 256 rays and a padded tail
+PAD_SLOTS = 80640  # degenerate slots before the mesh: indices to 81,919
+TIE_SHARE = 1e-4
+
+
+def _pack(pad=0):
+    tv, tn = make_icosphere(subdiv=3, radius=0.8, center=(0.1, -0.2, 0.3))
+    order = j_bvh.build_bvh(tv).order
+    tv, tn = tv[order], tn[order]
+    if pad:
+        z = np.zeros((pad, 3, 3), np.float32)
+        tv, tn = np.concatenate([z, tv]), np.concatenate([z, tn])
+    bp = j_mb.pack_brute(tv, tn)
+    for a, b in zip(bp, mesh_brute.pack_brute(tv, tn)):
+        assert a.tobytes() == b.tobytes()
+    return bp
+
+
+@pytest.fixture(scope="module")
+def tables():
+    return _pack()
+
+
+POPULATIONS = ("random", "camera", "surface")
+
+
+def _lanes(pop, bp, n=N, seed=0):
+    """One population: origins around the mesh (random), at the default
+    camera (camera) or on a random triangle with that triangle excluded
+    (surface), aimed at the mesh; every third lane any-hit, every seventh
+    inactive; t_init values that are not bf16 values (20.3, 7.123456 and a
+    uniform draw); the other lanes exclude random indices up to the table's
+    last."""
+    r = np.random.default_rng(POPULATIONS.index(pop) + 31 + seed)
+    slots = bp.tri_verts.shape[0]
+    live = np.nonzero(np.abs(bp.tri_verts).sum(axis=(1, 2)) > 0)[0]
+    target = (np.array([0.1, -0.2, 0.3], np.float32)
+              + r.uniform(-0.75, 0.75, (n, 3)).astype(np.float32))
+    ex = r.integers(-1, slots, n).astype(np.int32)
+    if pop == "random":
+        o = r.uniform(-2.0, 2.0, (n, 3)).astype(np.float32)
+    elif pop == "camera":
+        o = np.tile(np.array([0.0, 4 * np.sin(0.3), 4 * np.cos(0.3)],
+                             np.float32), (n, 1))
+    else:
+        ex = live[r.integers(0, live.size, n)].astype(np.int32)
+        uv = r.uniform(0, 1, (n, 2)).astype(np.float32)
+        uv[uv.sum(1) > 1] = 1 - uv[uv.sum(1) > 1]
+        v = bp.tri_verts[ex]
+        o = (v[:, 0] * (1 - uv[:, 0:1] - uv[:, 1:2]) + v[:, 1] * uv[:, 0:1]
+             + v[:, 2] * uv[:, 1:2]).astype(np.float32)
+        target = o + r.normal(size=(n, 3)).astype(np.float32)
+    d = target - o
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    t_init = np.where(np.arange(n) % 4 == 0, 7.123456, 20.3).astype(np.float32)
+    t_init[np.arange(n) % 4 == 2] = r.uniform(0.05, 3.0, (n + 1) // 4)
+    anyh = np.arange(n) % 3 == 1
+    act = np.arange(n) % 7 != 3
+    return o, d, t_init, act, anyh, ex
+
+
+def _jax(feat, bp, lanes, form):
+    o, d, t_init, act, anyh, ex = lanes
+    return j_mb._intersect_pallas(
+        jnp.asarray(feat), jnp.asarray(bp.clusters), jnp.asarray(o),
+        jnp.asarray(d), jnp.asarray(t_init), jnp.asarray(act),
+        any_hit=jnp.asarray(anyh), exclude=jnp.asarray(ex), interpret=True)
+
+
+def _plain(feat, bp, lanes, form, norel=False):
+    t, tri = mesh_brute.intersect_reduced_plain(
+        feat, torch.from_numpy(bp.clusters),
+        *(torch.from_numpy(x) for x in lanes), form, norel=norel)
+    return t.numpy(), tri.numpy()
+
+
+def _scores(feat, bp, lanes, lane, tris, form):
+    """Both candidates' scores (t, inf on a miss) on ``lane`` in ``form``,
+    from the plain version run on that lane alone with every other
+    triangle's coefficients zeroed."""
+    out = []
+    for tri in tris:
+        if tri < 0:
+            out.append(np.inf)
+            continue
+        one = torch.zeros_like(feat)
+        tile, c = divmod(int(tri), mesh_brute.TILE)
+        cols = [tile * 4 * mesh_brute.TILE + q * mesh_brute.TILE + c
+                for q in range(4)]
+        one[:, cols] = feat[:, cols]
+        lane_in = [x[lane:lane + 1] for x in lanes]
+        lane_in[2] = np.full(1, 3e38, np.float32)  # no t_init cap
+        lane_in[3] = np.ones(1, bool)
+        lane_in[4] = np.zeros(1, bool)
+        lane_in[5] = np.full(1, -1, np.int32)
+        t, got = _plain(one, bp, lane_in, form, norel=True)
+        out.append(float(t[0]) if got[0] >= 0 else np.inf)
+    return out
+
+
+def _assert_winners(feat, bp, lanes, form, got, want):
+    """Winners equal, but at ties the test shows: both candidates' scores
+    within 2 float32 ulp, on at most TIE_SHARE of the lanes (and none of
+    the inactive ones)."""
+    parted = np.nonzero(got != want)[0]
+    assert parted.size <= TIE_SHARE * got.size, parted
+    for lane in parted:
+        assert lanes[3][lane], lane
+        a, b = _scores(feat, bp, lanes, lane, (got[lane], want[lane]), form)
+        assert np.isfinite(a) and np.isfinite(b), (lane, a, b)
+        assert abs(a - b) <= 2 * np.spacing(np.float32(max(a, b))), \
+            (lane, a, b)
+
+
+def _check_against_pallas(feat_np, bp, lanes, form):
+    jt, jtri = (np.asarray(x) for x in _jax(feat_np, bp, lanes, form))
+    feat = torch.from_numpy(np.asarray(feat_np, np.float32))
+    if form == "bf16":
+        feat = feat.to(torch.bfloat16)
+    t, tri = _plain(feat, bp, lanes, form)
+    assert (jtri[~lanes[4]] >= 0).sum() > N // 10  # the rays do hit
+    _assert_winners(feat, bp, lanes, form, tri, jtri)
+    same = tri == jtri
+    np.testing.assert_array_equal(t[same], jt[same])
+    return t, tri
+
+
+@pytest.mark.parametrize("pop", POPULATIONS)
+@pytest.mark.parametrize("form", ["bf16x3", "bf16x6"])
+def test_reduced_plain_matches_pallas(tables, monkeypatch, form, pop):
+    """The split forms against the JAX package's TPU kernel in interpret
+    mode under the same PRT_MESH_PRECISION name: winners, and t bitwise
+    where they agree; a lane that misses returns t_init as the form
+    rebuilds it, rounded by bf16x3's two parts, exact in bf16x6."""
+    monkeypatch.setattr(j_mb, "_PRECISION_NAME", form)
+    lanes = _lanes(pop, tables)
+    t, tri = _check_against_pallas(tables.feat, tables, lanes, form)
+    miss = (tri < 0) & (lanes[2] == np.float32(7.123456))
+    assert miss.any()
+    if form == "bf16x3":
+        assert (t[miss] != lanes[2][miss]).all()
+    else:
+        np.testing.assert_array_equal(t[miss], lanes[2][miss])
+
+
+def test_reduced_plain_matches_pallas_at_high_indices(monkeypatch):
+    """The mesh behind 80,640 degenerate slots, so that its triangles are
+    indices 80,640-81,919 (the reference's streamed chunks on the TPU
+    side): the excluded triangles rebuilt from bf16x3's two parts."""
+    bp = _pack(PAD_SLOTS)
+    monkeypatch.setattr(j_mb, "_PRECISION_NAME", "bf16x3")
+    lanes = _lanes("surface", bp)
+    assert lanes[5].max() > 81000
+    _check_against_pallas(bp.feat, bp, lanes, "bf16x3")
+
+
+@pytest.mark.parametrize("pop", POPULATIONS)
+def test_reduced_plain_bf16_matches_reference(tables, pop):
+    """Form bf16 on the table cast to bf16: against the JAX package's XLA
+    path on that table (closest winners, any-hit occlusion) and its TPU
+    kernel in interpret mode (winners and t)."""
+    lanes = _lanes(pop, tables)
+    feat16 = jnp.asarray(tables.feat, jnp.bfloat16)
+    jt, jtri = (np.asarray(x) for x in j_mb._intersect_xla(
+        feat16, jnp.asarray(tables.clusters), *(jnp.asarray(x)
+                                                for x in lanes[:4]),
+        exclude=jnp.asarray(lanes[5])))
+    feat = torch.from_numpy(tables.feat).to(torch.bfloat16)
+    t, tri = _plain(feat, tables, lanes, "bf16")
+    act, anyh = lanes[3], lanes[4]
+    closest = act & ~anyh
+    _assert_winners(feat, tables, lanes, "bf16", np.where(closest, tri, -1),
+                    np.where(closest, jtri, -1))
+    np.testing.assert_array_equal((tri >= 0)[act & anyh],
+                                  (jtri >= 0)[act & anyh])
+    _check_against_pallas(feat16, tables, lanes, "bf16")
+
+
+@pytest.mark.parametrize("form", ["bf16", "bf16x3", "bf16x6"])
+def test_reduced_plain_nonfinite_t_init_matches_pallas(tables, monkeypatch,
+                                                       form):
+    """t_init = inf, or a finite value past bf16's range, on every fifth
+    lane: the control values meet the table's zero rows in the product, as
+    in the JAX package's TPU kernel, so such a lane's quantities are NaN and
+    it records no hit (the kernel gives it none, tests/test_torch_cuda.py);
+    the other lanes keep their winners."""
+    if form != "bf16":
+        monkeypatch.setattr(j_mb, "_PRECISION_NAME", form)
+    lanes = list(_lanes("camera", tables))
+    odd = np.arange(N) % 5 == 0
+    lanes[2] = np.where(odd, np.where(np.arange(N) % 2 == 0, np.inf, 3.4e38),
+                        lanes[2]).astype(np.float32)
+    feat = (jnp.asarray(tables.feat, jnp.bfloat16) if form == "bf16"
+            else tables.feat)
+    t, tri = _check_against_pallas(feat, tables, lanes, form)
+    assert (tri[odd] == -1).all()
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_hi_lo_parts_match_reference(n):
+    """The parts bitwise the reference's, and what they rebuild: two parts
+    hold every integer up to 81,919 exactly but not an f32 t_init, three
+    parts hold both."""
+    r = np.random.default_rng(n)
+    x = np.concatenate([
+        r.normal(size=4096) * np.exp2(r.integers(-30, 30, 4096)),
+        np.arange(81920), [3.14159274, 7.123456, 20.3, -1.0, 0.0]]
+    ).astype(np.float32)
+    got = mesh_brute.hi_lo_parts(torch.from_numpy(x), n)
+    want = j_mb._hi_lo_parts(jnp.asarray(x), n)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        np.testing.assert_array_equal(g.view(torch.int16).numpy(),
+                                      np.asarray(w).view(np.int16))
+    rebuilt = got[0].float()
+    for part in got[1:]:
+        rebuilt = rebuilt + part.float()
+    ints = rebuilt[4096:4096 + 81920].numpy()
+    pi = rebuilt[-5].item()
+    if n >= 2:
+        np.testing.assert_array_equal(ints, np.arange(81920, dtype=np.float32))
+    if n == 2:
+        assert pi != np.float32(3.14159274) and abs(pi - 3.141594) < 5e-7
+    if n == 3:
+        assert pi == np.float32(3.14159274)
+
+
+NAMES = (None, "highest", "bf16x6", "bf16x3", "default")
+
+
+@pytest.mark.parametrize("switch", [None, "PRT_MESH_NOREL",
+                                    "PRT_MESH_FORCE_XLA"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("name", NAMES)
+def test_cpu_dispatch_matches_reference(tables, monkeypatch, name, dtype,
+                                        switch):
+    """On the CPU, under each PRT_MESH_PRECISION name (set in both
+    packages), table dtype and run-time switch, ``mesh_intersect`` runs
+    the reference's XLA path in both packages: the same winners, t within
+    1e-6."""
+    if name is not None:
+        monkeypatch.setattr(j_mb, "_PRECISION_NAME", name)
+        monkeypatch.setattr(mesh_brute, "_PRECISION_NAME", name)
+    if switch:
+        monkeypatch.setenv(switch, "1")
+    lanes = _lanes("random", tables)
+    o, d, t_init, act, anyh, ex = lanes
+    jfeat = jnp.asarray(tables.feat,
+                        jnp.bfloat16 if dtype == "bf16" else jnp.float32)
+    feat = torch.from_numpy(tables.feat)
+    if dtype == "bf16":
+        feat = feat.to(torch.bfloat16)
+    jt, jtri = (np.asarray(x) for x in j_mb.mesh_intersect(
+        jfeat, jnp.asarray(tables.clusters), jnp.asarray(o), jnp.asarray(d),
+        jnp.asarray(t_init), jnp.asarray(act), any_hit=jnp.asarray(anyh),
+        exclude=jnp.asarray(ex)))
+    t, tri = mesh_brute.mesh_intersect(
+        feat, torch.from_numpy(tables.clusters), *(torch.from_numpy(x)
+                                                   for x in lanes[:3]),
+        active=torch.from_numpy(act), any_hit=torch.from_numpy(anyh),
+        exclude=torch.from_numpy(ex))
+    t, tri = t.numpy(), tri.numpy()
+    form = "bf16" if dtype == "bf16" else None
+    if form is None:
+        np.testing.assert_array_equal(tri, jtri)
+    else:
+        _assert_winners(feat, tables, lanes, form, tri, jtri)
+    np.testing.assert_allclose(t, jt, rtol=1e-6, atol=0)
+
+
+def test_precision_name_is_read_at_import():
+    """PRT_MESH_PRECISION is read once, when the module is imported; an
+    unknown name raises there, as the reference's dict lookup does; unset
+    is the port's "highest"."""
+    code = ("from photorealistic_rendering_using_opencl_tpu_torch.ops import "
+            "mesh_brute as m; print(m._PRECISION_NAME)")
+    env = {k: v for k, v in os.environ.items() if k != "PRT_MESH_PRECISION"}
+
+    def run(value):
+        e = dict(env) if value is None else dict(env, PRT_MESH_PRECISION=value)
+        return subprocess.run([sys.executable, "-c", code], cwd=REPO, env=e,
+                              capture_output=True, text=True, timeout=120)
+    for value, want in ((None, "highest"), ("bf16x3", "bf16x3")):
+        res = run(value)
+        assert res.returncode == 0, res.stderr
+        assert res.stdout.split() == [want]
+    res = run("bf16x9")
+    assert res.returncode != 0 and "KeyError" in res.stderr
+
+
+@pytest.mark.parametrize("name,dtype,form", [
+    ("highest", torch.float32, None), ("bf16x6", torch.float32, "bf16x6"),
+    ("bf16x3", torch.float32, "bf16x3"), ("default", torch.float32, "bf16"),
+    ("highest", torch.bfloat16, "bf16"), ("bf16x6", torch.bfloat16, "bf16")])
+def test_reduced_form_by_switch(monkeypatch, name, dtype, form):
+    """The card's form: K1 (None) for highest on the f32 table, the split
+    for bf16x3 / bf16x6, one bf16 pass for default; a bf16 table is form
+    bf16 whatever the name (the reference's split is off for it)."""
+    monkeypatch.setattr(mesh_brute, "_PRECISION_NAME", name)
+    assert mesh_brute.reduced_form(torch.zeros(2, dtype=dtype)) == form
+
+
+def test_uses_kernel_gate(monkeypatch):
+    """True for tensors on the card, False on the CPU and, on the card,
+    under PRT_MESH_FORCE_XLA (the reference's uses_pallas)."""
+    on_card = types.SimpleNamespace(device=torch.device("cuda", 0))
+    assert mesh_brute.uses_kernel(on_card)
+    assert not mesh_brute.uses_kernel(torch.zeros(1))
+    monkeypatch.setenv("PRT_MESH_FORCE_XLA", "1")
+    assert not mesh_brute.uses_kernel(on_card)
+
+
+class _FakeLibrary:
+    """Stands in for ``_cuda.LIBRARY``: records each entry's name and
+    arguments and reports success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def get(self):
+        return self
+
+    def __getattr__(self, name):
+        if not name.startswith("prt_"):
+            raise AttributeError(name)
+
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+        return entry
+
+
+@pytest.fixture
+def fake_library(monkeypatch):
+    lib = _FakeLibrary()
+    monkeypatch.setattr(_cuda, "LIBRARY", lib)
+    monkeypatch.setattr(_cuda, "stream_handle", lambda t: 0)
+    monkeypatch.setattr(_cuda, "on_device", lambda t: contextlib.nullcontext())
+    return lib
+
+
+@pytest.mark.parametrize("norel", [False, True])
+@pytest.mark.parametrize("name,dtype,entry,code,parts", [
+    ("highest", torch.float32, "prt_mesh_brute", None, None),
+    ("bf16x6", torch.float32, "prt_mesh_brute_tc", 2, 3),
+    ("bf16x3", torch.float32, "prt_mesh_brute_tc", 1, 2),
+    ("default", torch.float32, "prt_mesh_brute_tc", 0, 1),
+    ("bf16x3", torch.bfloat16, "prt_mesh_brute_tc", 0, 1)])
+def test_kernel_launch_by_switch(tables, fake_library, monkeypatch, name,
+                                 dtype, entry, code, parts, norel):
+    """What ``mesh_intersect`` launches on the card under each switch: the
+    C entry, the form code, the fragments' parts and the NOREL flag (read
+    at the call), each wrapper's count moving by one; tensors on the CPU
+    and a stand-in library, so no card is needed."""
+    monkeypatch.setattr(mesh_brute, "_PRECISION_NAME", name)
+    if norel:
+        monkeypatch.setenv("PRT_MESH_NOREL", "1")
+    o, d, t_init, act, anyh, ex = (torch.from_numpy(x)
+                                   for x in _lanes("camera", tables, n=64))
+    feat = torch.from_numpy(tables.feat).to(dtype)
+    wrapper = (mesh_brute.mesh_brute_kernel if code is None
+               else mesh_brute.mesh_brute_tc_kernel)
+    before = wrapper.launches
+    mesh_brute._launch(feat, torch.from_numpy(tables.clusters), o, d, t_init,
+                       act, anyh, ex)
+    assert wrapper.launches == before + 1
+    [(called, args)] = fake_library.calls
+    assert called == entry
+    assert len(args) == len(_cuda._SIGNATURES[entry])
+    assert args[-2] == int(norel)
+    if code is not None:
+        assert args[-3] == code
+        frag = mesh_brute.form_fragments(feat, mesh_brute.reduced_form(feat))
+        assert args[0] == frag.data_ptr() and frag.shape[0] == parts
+
+
+@pytest.mark.parametrize("dtype,parts", [(torch.float32, 3),
+                                         (torch.float32, 1),
+                                         (torch.bfloat16, 1)])
+def test_fragments_hold_the_table_parts(tables, dtype, parts):
+    """Every 16 x 16 A fragment rebuilt from the 32 lanes' 8 values (PTX's
+    m16n8k16 layout, ``_fragment_index``) is its part's block of the
+    table: quantity q of 16 triangles (rows) over the 16 ray features."""
+    feat = torch.from_numpy(tables.feat).to(dtype)
+    frag = mesh_brute.tc_fragments(feat, parts)
+    nt = tables.clusters.shape[0]
+    assert frag.shape == (parts, nt, 8, 4, 32, 8)
+    assert frag.dtype == torch.bfloat16 and frag.is_contiguous()
+    rows, cols = mesh_brute._fragment_index()
+    block = torch.zeros(parts, nt, 8, 4, 16, 16, dtype=torch.bfloat16)
+    block[..., rows, cols] = frag
+    src = feat if dtype == torch.bfloat16 else feat.float()
+    for p, part in enumerate(mesh_brute.hi_lo_parts(src, parts)):
+        want = part.reshape(16, nt, 4, 8, 16).permute(1, 3, 2, 4, 0)
+        assert torch.equal(block[p].view(torch.int16),
+                           want.contiguous().view(torch.int16))
+    # each (row, column) of a fragment is held by exactly one lane slot
+    assert len(set(zip(rows.flatten().tolist(),
+                       cols.flatten().tolist()))) == 256
+
+
+def test_fragments_are_made_once_per_table(tables):
+    """``form_fragments`` keeps a table's fragments for each number of
+    parts and makes them anew after the table changes in place."""
+    feat = torch.from_numpy(tables.feat.copy())
+    a = mesh_brute.form_fragments(feat, "bf16x6")
+    assert mesh_brute.form_fragments(feat, "bf16x6") is a
+    assert mesh_brute.form_fragments(feat, "bf16").shape[0] == 1
+    feat.mul_(2.0)
+    b = mesh_brute.form_fragments(feat, "bf16x6")
+    assert b is not a
+    assert torch.equal(b, mesh_brute.tc_fragments(feat, 3))
+
+
+def test_mesh_dtype_switch_loads_a_bf16_table(monkeypatch):
+    """PRT_MESH_DTYPE=bf16, read at each load: both packages' coefficient
+    tables bf16 and bitwise equal; unset, float32."""
+    mesh = make_icosphere(subdiv=2, radius=0.6, center=(0.0, -1.0, 0.0))
+    for value, dtype in (("bf16", torch.bfloat16), (None, torch.float32)):
+        if value:
+            monkeypatch.setenv("PRT_MESH_DTYPE", value)
+        else:
+            monkeypatch.delenv("PRT_MESH_DTYPE", raising=False)
+        _, jsc = j_loader.load_scene("scenes/cornell.json",
+                                     mesh_override=mesh)
+        _, sc = loader.load_scene("scenes/cornell.json", mesh_override=mesh,
+                                  device="cpu")
+        assert sc.bf_feat.dtype == dtype
+        bits = np.int16 if value else np.int32
+        assert (sc.bf_feat.view(torch.int16 if value else torch.int32)
+                .numpy().tobytes() == np.asarray(jsc.bf_feat).view(bits)
+                .tobytes())
+
+
+def _second_pass_rays(n=2048, seed=5):
+    """Rays that graze the mesh: origins around it, aimed near its
+    silhouette, where the bf16 table's false hits fail validation."""
+    r = np.random.default_rng(seed)
+    c = np.array([0.0, -1.0, 0.0], np.float32)
+    o = (c + r.uniform(-2.5, 2.5, (n, 3))).astype(np.float32)
+    to_c = c - o
+    side = np.cross(to_c, r.normal(size=(n, 3)).astype(np.float32))
+    side /= np.linalg.norm(side, axis=1, keepdims=True)
+    target = c + side * r.uniform(0.5, 0.62, (n, 1)).astype(np.float32)
+    d = (target - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o, d.astype(np.float32)
+
+
+def test_second_pass_matches_reference(monkeypatch):
+    """``mesh_second_pass`` with both packages' kernel gates forced open
+    (the port's uses_kernel, the reference's uses_pallas), so that both
+    sort and search again through their plain paths, on a bf16 table whose
+    first pass has winners that validation rejects: the port's
+    mesh_closest winners are the reference's, and the second pass moved
+    some."""
+    monkeypatch.setenv("PRT_MESH_DTYPE", "bf16")
+    mesh = make_icosphere(subdiv=2, radius=0.6, center=(0.0, -1.0, 0.0))
+    jcfg, jsc = j_loader.load_scene("scenes/cornell.json", mesh_override=mesh)
+    cfg, sc = loader.load_scene("scenes/cornell.json", mesh_override=mesh,
+                                device="cpu")
+    monkeypatch.setattr(j_mb, "uses_pallas", lambda: True)
+    monkeypatch.setattr(mesh_brute, "uses_kernel", lambda x: True)
+    o, d = _second_pass_rays()
+    n = o.shape[0]
+    t_init = np.full(n, 20.0, np.float32)
+    act = np.arange(n) % 9 != 4
+    out = {}
+    for second in (False, True):
+        jc = dataclasses.replace(jcfg, mesh_second_pass=second,
+                                 mesh_sort_rays=True)
+        pc = dataclasses.replace(cfg, mesh_second_pass=second,
+                                 mesh_sort_rays=True)
+        _, jtri, _, _ = j_isect.mesh_closest(
+            jc, jsc, jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_init),
+            active=jnp.asarray(act))
+        _, tri, _, _ = intersect.mesh_closest(
+            pc, sc, torch.from_numpy(o), torch.from_numpy(d),
+            torch.from_numpy(t_init), active=torch.from_numpy(act))
+        jtri, tri = np.asarray(jtri), tri.numpy()
+        parted = np.nonzero(tri != jtri)[0]
+        assert parted.size <= TIE_SHARE * n, parted
+        out[second] = tri
+    raw_t, raw = mesh_brute.mesh_intersect(
+        sc.bf_feat, sc.bf_clusters, torch.from_numpy(o), torch.from_numpy(d),
+        torch.from_numpy(t_init), active=torch.from_numpy(act))
+    rejected = (raw.numpy() >= 0) & (out[False] < 0)
+    assert rejected.sum() > 0  # the first pass does reject winners
+    moved = out[True] != out[False]
+    assert moved.any() and not moved[~rejected].any()
+
+
+def test_bench_kernel_legs(tables, monkeypatch):
+    """tools/bench_kernel.py's precision sweep and bf16-table leg, run on
+    the CPU with the host clock in place of CUDA events (on the CPU every
+    name runs the twin, so the f32 names agree with highest entirely): the
+    reference's names, the numbers each leg reports, and the precision
+    name put back."""
+    from photorealistic_rendering_using_opencl_tpu_torch.tools import (
+        bench_kernel,
+    )
+    monkeypatch.setattr(bench_kernel, "cuda_ms", lambda fn, reps: 1.0)
+    saved = mesh_brute._PRECISION_NAME
+    o, d, t_init, *_ = (torch.from_numpy(x) for x in _lanes("camera", tables))
+    feat, cl = torch.from_numpy(tables.feat), torch.from_numpy(tables.clusters)
+    sweep, results = bench_kernel.precision_sweep(feat, cl, o, d, t_init, 2)
+    assert mesh_brute._PRECISION_NAME == saved
+    assert list(sweep) == ["default", "bf16x3", "bf16x6", "highest"]
+    for name in ("default", "bf16x3", "bf16x6"):
+        assert sweep[name]["index_agreement"] == 1.0
+        assert sweep[name]["hit_miss_flips"] == 0
+    leg = bench_kernel.bf16_table_leg(feat, cl, o, d, t_init, 2,
+                                      results["highest"])
+    assert set(leg) == {"ms", "hit_rate_f32", "index_agreement",
+                        "hit_miss_flips", "t_max_abs_both_hit"}
+    assert 0.1 < leg["hit_rate_f32"] < 1.0 and leg["index_agreement"] < 1.0

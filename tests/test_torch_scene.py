@@ -44,8 +44,9 @@ SLICE_LEAVES = (
     "obj_lobes", "obj_dist", "phase_g", "medium_sigma_a", "medium_sigma_s",
     "medium_sigma_t", "env_map",
 )
-# ignored by the port (a TPU-kernel backstop in the reference)
-IGNORED_CFG = ("mesh_second_pass",)
+# SceneConfig fields the port does not carry (none: mesh_second_pass is
+# ported with the reduced-precision forms)
+IGNORED_CFG = ()
 
 CASES = {
     "cornell_simple": ("scenes/cornell_simple.json", None, {}),
