@@ -24,7 +24,11 @@ order, none of them optional and none wrapped in a fallback:
      flips, K1's time by CUDA events over 10 launches and by the profiler,
      the twin's, the bound and the share of lane slots doing triangle
      work; and K1 on both render batches with their warps launched in a
-     random grid order.
+     random grid order.  Then PRT_MESH_TILE's other sizes (K1_TILES, 256
+     and 512): K1 on the tables packed at each tile against the twin on
+     the same tables, the four populations in lane order, the closest
+     lanes bitwise the 128-triangle tables' results; flips, t error,
+     CUDA-event ms and the bound.
   4. K2 (csrc/tonemap.cu) against its plain twin: a seeded 512^2 HDR image,
      the edge set (K2_EDGES on images with sides of 1, 3, 33 and 47) and a
      16-byte misaligned view, vignette on/off, brightness 1.0/1.7: NaN in
@@ -62,8 +66,10 @@ order, none of them optional and none wrapped in a fallback:
  10. T1 (csrc/matmul_only.cu, K1's compute-only ablation) against its plain
      version on the cornell_hi tables and phase 3's random population at
      128 and 256 rays a block, within 1e-5 of each ray's sum of absolute
-     terms; the opcode counts of its inner loop (cuobjdump -sass); its time
-     at both blocks against its FLOP bound and its FP32 issue floor; the
+     terms, on the 128-triangle tables and on the same packed at T1_TILE
+     (256); the opcode counts of its inner loop (cuobjdump -sass); its
+     time at both blocks and both tiles against its FLOP bound and its
+     FP32 issue floor; the
      (ray, tile) pairs it adds against those K1 tests; times of its plain
      version and the relevance pass, and K1 / T1 on that batch; then the K1
      microbenchmark (tools/bench_kernel.py) as a user runs it, with its
@@ -80,7 +86,8 @@ order, none of them optional and none wrapped in a fallback:
      spp under torch.no_grad(), tonemapped to PNG, every pixel held against
      phase 6's regen image; K1 launches spp x (n_steps + 1) for scan.
  13. scan fwd+bwd: value-and-grad of mean(image) through render's default
-     method, cornell_hi 512^2 x 4 spp, over every float leaf + camera:
+     method, cornell_hi 512^2 x SCAN_FB_SPP (2) spp, over every float leaf
+     + camera:
      finite gradients, non-zero colour and camera gradients, no K1 launch
      in the backward, peak memory.
  14. Goldens through render's default method: phase 5's three plus
@@ -105,9 +112,10 @@ order, none of them optional and none wrapped in a fallback:
      cornell_simple 512^2 x 2 spp frames by each scheme, in turns, against
      pcg4d (and 48^2 frames against the CPU).
  17. Path A (BASELINE config 3): sdf_demo.json (3 SDFs, a box, 8 bounces)
-     with icosphere_hi (81,920 triangles) as its mesh, 512^2 x SDF_SPP (4)
+     with icosphere_hi (81,920 triangles) as its mesh, 512^2 x SDF_SPP (2)
      spp by regen (profiled at 1 spp for the idle share), while and scan (each
-     tonemapped, K2), all three equal; fwd+bwd regen_scan 512^2 x 4 spp
+     tonemapped, K2), all three equal; fwd+bwd regen_scan 512^2 x
+     SDF_FB_SPP (2) spp
      over every float leaf (SDF params and position non-zero, K1 none in
      the backward, peak memory); one SDF march step's kernels; K1 against
      its twin on the regen frame's SDF_K1_CALL-th merged batch; card
@@ -123,9 +131,10 @@ order, none of them optional and none wrapped in a fallback:
      parted pixels left out, the rest within FWD_MEDIUM.
  19. Path C (BASELINE config 5): materials.json lit by a 2048 x 1024
      equirect map made from the seed, written by write_hdr and read back,
-     thin-lens camera: the CLI -hdr at 1024^2 x 16 spp as a process and
-     through app.main (K2 at export counted); fwd+bwd regen_scan at 1024^2
-     x 4 spp (the spp cut from BASELINE's 256 to fit) over env_map, the
+     thin-lens camera: the CLI -hdr at 1024^2 x ENV_CLI_SPP (8) spp as a
+     process and through app.main (K2 at export counted); fwd+bwd
+     regen_scan at 1024^2 x ENV_FB_SPP (2) spp (the spp cut from
+     BASELINE's 256 to fit) over env_map, the
      colours and the lens, peak memory; K2 on the frame against its plain
      version; the idle share of a 1-spp regen frame; the env_map
      gradient's scatter against index_add_ (CUDA events); card against CPU
@@ -194,7 +203,7 @@ drove before the walk was ported; phases 21-24 take the card's own pick.
      and peak memory of each;
      (b) the same with K1 pinned (PRT_MESH_ACCEL=brute) at 256^2 x 2 spp;
      (c) the north star by tools.northstar.value_and_grads at 1024^2 x
-     NORTH_SPP (2) spp, its budget calibrated over the frame, by 4 bands
+     NORTH_SPP (1) spp, its budget calibrated over the frame, by 4 bands
      and direct, once each: seconds, peak memory, W1 launches, completed
      == spp, the bands' summed gradients held to the direct ones
      (northstar.check_tiled).
@@ -220,10 +229,18 @@ drove before the walk was ported; phases 21-24 take the card's own pick.
      L2-flushed (event_ms), the bound, and
      the lanes PRT_MESH_NOREL moves (none in bf16x6); K1 under
      PRT_MESH_NOREL bitwise; PRT_MESH_FORCE_XLA: no kernel, bitwise the
-     twin; one brute-pinned cornell_hi regen frame at TC_SIDE^2 x TC_SPP
-     spp in each form, its mean radiance against highest's (printed; only
-     finiteness gates), and bf16x3's again with mesh_second_pass (two
-     launches a mesh call).
+     twin; each of TC_SIZE_FORMS at each (tile, relevance block) of
+     TC_SIZES ((256, 256), (128, 128), (128, 512): PRT_MESH_TILE and
+     PRT_MESH_BLOCK) on the tables packed at the tile, against its plain
+     version at the same sizes on the four populations (flips, t error,
+     CUDA-event ms, the bound); one brute-pinned cornell_hi regen frame at
+     TC_SIDE^2 x TC_SPP spp in each form, its mean radiance against
+     highest's (printed; only finiteness gates), and bf16x3's again with
+     mesh_second_pass (two launches a mesh call); the same frame through
+     K1 on the tables at tiles 256 and 512 (at most FLIP_PIXELS of the
+     pixels off highest's: an any-hit lane's winner, which validation
+     re-tests, is its first occluding tile's) and in TC_SIZE_FRAME_FORM at
+     each of TC_SIZES.
 
 Prints the kernels' JSON line (with each kernel's bound: the larger of its
 bytes over 3.35 TB/s and its operations over 67 TFLOP/s, the H100 SXM's
@@ -240,9 +257,12 @@ prints no result line.
     python3 chip_smoke.py --k1-sweep
 
 runs phases 1-3, then builds csrc/mesh_brute.cu once for each K1
-configuration of K1_SWEEP (its PRT_K1_* macros) and times each on phase
-3's populations, held bitwise against the kernel library's build; no
-result line.
+configuration of K1_SWEEP and K1_TILE_SWEEP (its PRT_K1_* macros) and
+times each on phase 3's populations, K1_SWEEP's on the 128-triangle
+tables and K1_TILE_SWEEP's (the reference's round-5 grid: tiles 128, 256
+and 512 x 128, 256 and 512 rays a block) on the tables packed at each
+tile, held bitwise against the kernel library's build at the same tile;
+no result line.
 
     python3 chip_smoke.py --op-census
 
@@ -358,9 +378,17 @@ K1_PAIR_FLOPS = 41
 K1_SLAB_FLOPS = 38
 # --k1-sweep's grid of K1 configurations, each a build of csrc/mesh_brute.cu:
 # (rays per block, the popcount from which a warp runs per-thread mode (33:
-# never), triangles a lane per spread-mode pass)
+# never), triangles a lane per spread-mode pass), on 128-triangle tiles
 K1_SWEEP = [(b, p, u) for b in (64, 128, 256) for u in (1, 2, 4)
             for p in (1, 16, 24, 28, 32, 33)]
+# ... and the reference's round-5 grid (ops/mesh_brute.py:56-67): tiles
+# (PRT_MESH_TILE) x rays per block, at the default popcount and pass
+K1_TILE_SWEEP = [(t, (b, 32, 2)) for t in (128, 256, 512)
+                 for b in (128, 256, 512)]
+# PRT_MESH_TILE's sizes beside the default 128 at which phase 3 holds K1 to
+# its twin and phase 28 renders a frame through it, and T1's in phase 10
+K1_TILES = (256, 512)
+T1_TILE = 256
 # the render population: the merged batch that the cornell_hi 512^2 x 8 spp
 # regen forward (phase 6's render) sends to mesh_closest at this call
 RENDER_CALL = 10
@@ -711,6 +739,26 @@ def k1_counters(feat, clusters, b):
     return tuple(int(x) for x in counters.cpu())
 
 
+def tables_at(scene, tile):
+    """The scene's brute tables packed again at ``tile`` triangles a tile
+    (what the loader packs under PRT_MESH_TILE=tile: the triangles in the
+    same BVH order), on the scene's device -> (feat, clusters,
+    tri_verts, tri_normals)."""
+    import torch
+    from photorealistic_rendering_using_opencl_tpu_torch.ops import mesh_brute
+    bp = mesh_brute.pack_brute(scene.bf_tri_verts.cpu().numpy(),
+                               scene.bf_tri_normals.cpu().numpy(), tile=tile)
+    return tuple(torch.from_numpy(x).to(scene.bf_feat.device) for x in bp)
+
+
+def scene_at(scene, tile):
+    """``scene`` with its brute tables packed at ``tile`` (tables_at)."""
+    import dataclasses
+    feat, clusters, tv, tn = tables_at(scene, tile)
+    return dataclasses.replace(scene, bf_feat=feat, bf_clusters=clusters,
+                               bf_tri_verts=tv, bf_tri_normals=tn)
+
+
 def k1_bound(feat, clusters, b):
     """K1's bound on one batch, from the work this batch needs: the kernel's
     own counters give the (ray, tile) pairs whose ray passed the tile's
@@ -724,7 +772,7 @@ def k1_bound(feat, clusters, b):
     counts = k1_counters(feat, clusters, b)
     warp_tiles, ray_tiles, slabs, pt_warp_tiles, pt_ray_tiles = counts
     n = b["origin"].shape[0]
-    tile = mesh_brute.TILE
+    tile = mesh_brute.table_tile(feat, clusters)
     n_bytes = (feat.numel() * 4 + clusters.numel() * 4
                + n * (12 + 12 + 4 + 1 + 1 + 4)  # o, d, t_init, flags, exclude
                + n * (4 + 4))  # t, tri
@@ -958,46 +1006,66 @@ def k1_variants(configs):
     return out
 
 
-def k1_sweep(feat, clusters, pops, reps=5):
-    """Every configuration of K1_SWEEP, each its own build of K1, on every
-    population: CUDA-event ms a launch over ``reps`` back-to-back launches,
-    logged; each configuration's outputs held bitwise against the kernel
-    library's (the render path's build) -> the (configuration, population)
-    pairs that disagreed."""
+def k1_sweep(scene, pops, reps=5):
+    """Every configuration of K1_SWEEP on the scene's 128-triangle tables
+    and every (tile, configuration) pair of K1_TILE_SWEEP on its tables
+    packed at that tile (tables_at), each configuration its own build of
+    K1, on every population: CUDA-event ms a launch over ``reps``
+    back-to-back launches, logged; each run's outputs held bitwise against
+    the kernel library's (the render path's build) at the same tile -> the
+    (tile, configuration, population) triples that disagreed."""
     import torch
     from photorealistic_rendering_using_opencl_tpu_torch.ops import mesh_brute
-    variants = k1_variants(K1_SWEEP)
+    grid = list(dict.fromkeys([(128, cfg) for cfg in K1_SWEEP]
+                              + K1_TILE_SWEEP))
+    variants = k1_variants(sorted({cfg for _, cfg in grid}))
+    tables = {128: (scene.bf_feat, scene.bf_clusters)}
+    for tile in sorted({t for t, _ in grid} - {128}):
+        tables[tile] = tables_at(scene, tile)[:2]
     table, wrong = {}, []
     for name, b in pops.items():
         n = b["origin"].shape[0]
-        t0, i0 = mesh_brute.mesh_brute_kernel(
-            feat, clusters, b["origin"], b["direction"], b["t_init"],
-            b["active"], b["any_hit"], b["exclude"])
-        t = torch.empty_like(t0)
-        i = torch.empty_like(i0)
-        for cfg, (fn, _) in variants.items():
-            def launch(fn=fn):
-                code = fn(feat.data_ptr(), feat.stride(0), clusters.shape[0],
-                          clusters.data_ptr(), b["origin"].data_ptr(),
-                          b["direction"].data_ptr(), b["t_init"].data_ptr(),
-                          b["active"].data_ptr(), b["any_hit"].data_ptr(),
-                          b["exclude"].data_ptr(), n, t.data_ptr(),
-                          i.data_ptr(), None, 0,
-                          torch.cuda.current_stream().cuda_stream)
-                if code:
-                    fail(f"K1 sweep: {cfg} returned CUDA error {code}")
-            launch()
-            if not (torch.equal(t, t0) and torch.equal(i, i0)):
-                wrong.append((cfg, name))
-            table.setdefault(cfg, {})[name] = cuda_ms(launch, reps)
+        for tile, (feat, clusters) in tables.items():
+            t0, i0 = mesh_brute.mesh_brute_kernel(
+                feat, clusters, b["origin"], b["direction"], b["t_init"],
+                b["active"], b["any_hit"], b["exclude"])
+            t = torch.empty_like(t0)
+            i = torch.empty_like(i0)
+            for cfg in [c for tl, c in grid if tl == tile]:
+                fn = variants[cfg][0]
+
+                def launch(fn=fn, feat=feat, clusters=clusters, tile=tile,
+                           cfg=cfg):
+                    code = fn(feat.data_ptr(), feat.stride(0),
+                              clusters.shape[0], tile, clusters.data_ptr(),
+                              b["origin"].data_ptr(),
+                              b["direction"].data_ptr(),
+                              b["t_init"].data_ptr(), b["active"].data_ptr(),
+                              b["any_hit"].data_ptr(), b["exclude"].data_ptr(),
+                              n, t.data_ptr(), i.data_ptr(), None, 0,
+                              torch.cuda.current_stream().cuda_stream)
+                    if code:
+                        fail(f"K1 sweep: tile {tile} {cfg} returned CUDA "
+                             f"error {code}")
+                launch()
+                if not (torch.equal(t, t0) and torch.equal(i, i0)):
+                    wrong.append((tile, cfg, name))
+                table.setdefault((tile, cfg), {})[name] = cuda_ms(launch,
+                                                                  reps)
     names = list(pops)
     log("  K1 sweep (CUDA events, ms a launch over "
-        f"{reps} launches; rays per block, per-thread from popcount, "
-        "triangles a lane per spread-mode pass; registers): "
+        f"{reps} launches; tile, (rays per block, per-thread from popcount, "
+        "triangles a lane per spread-mode pass); registers): "
         + " | ".join(names))
-    for cfg, row in sorted(table.items(), key=lambda kv: kv[1]["render sorted"]):
-        log(f"    {cfg} {variants[cfg][1]}: "
+    for (tile, cfg), row in sorted(table.items(),
+                                   key=lambda kv: kv[1]["render sorted"]):
+        log(f"    {tile} {cfg} {variants[cfg][1]}: "
             + " ".join(f"{row[k]:.3f}" for k in names))
+    log("  the reference's grid (tile x rays per block, K1_TILE_SWEEP), ms "
+        "a launch, camera / render sorted: " + "; ".join(
+            f"{tile} x {cfg[0]} {table[(tile, cfg)]['camera']:.3f} / "
+            f"{table[(tile, cfg)]['render sorted']:.3f}"
+            for tile, cfg in K1_TILE_SWEEP))
     return wrong
 
 
@@ -1075,6 +1143,7 @@ def phase_k1(dev):
         "order (the same 32 lanes a warp; CUDA events, 10 launches): "
         + ", ".join(f"{k} {v:.3f} ms (in order {timings[k]['ms']:.3f})"
                     for k, v in timings["render"]["warps_shuffled_ms"].items()))
+    by_tile = k1_tiles(scene, base, outs, timings, problems)
 
     # padding: 600 rays (not a multiple of any block)
     tv, tn = make_icosphere(subdiv=3, radius=0.8, center=(0.1, -0.2, 0.3))
@@ -1095,7 +1164,49 @@ def phase_k1(dev):
                torch.from_numpy(bp.tri_verts).to(dev), small, problems)
     if problems:
         fail("; ".join(problems))
-    return worst, timings, sort_cost, pops
+    return worst, timings, sort_cost, pops, by_tile
+
+
+def k1_tiles(scene, base, outs, timings, problems):
+    """PRT_MESH_TILE's other sizes: K1 on the scene's tables packed at each
+    tile of K1_TILES (tables_at) against the twin on the same tables, on
+    the four populations in lane order (k1_compare's limits); the closest
+    lanes' (t, tri) bitwise the 128-triangle tables' (the least t, the
+    lowest index on ties, whatever the tiles); CUDA-event ms over 10
+    launches and the bound -> {tile: {population: numbers}}."""
+    import torch
+    from photorealistic_rendering_using_opencl_tpu_torch.ops import mesh_brute
+    out = {}
+    for tile in K1_TILES:
+        feat, clusters, tv, _ = tables_at(scene, tile)
+        out[tile] = {}
+        for name, b in base.items():
+            r = k1_compare(f"{name} at tile {tile}", feat, clusters, tv, b,
+                           problems)
+            closest = b["active"] & ~b["any_hit"]
+            t0, i0 = outs[name]
+            same = (torch.equal(r["t"][closest], t0[closest])
+                    and torch.equal(r["tri"][closest], i0[closest]))
+            if not same:
+                problems.append(f"K1 {name} at tile {tile}: closest lanes "
+                                "differ from the 128-triangle tables'")
+            args = (feat, clusters, b["origin"], b["direction"], b["t_init"],
+                    b["active"], b["any_hit"], b["exclude"])
+            ms = cuda_ms(lambda: mesh_brute.mesh_brute_kernel(*args), 10)
+            bound, by, share, _ = k1_bound(feat, clusters, b)
+            out[tile][name] = dict(
+                ms=ms, ms_tile_128=timings[name]["ms"],
+                plain_ms=r["twin_ms"], bound=bound, by=by, share=share,
+                win_flips=r["win_flips"], occ_flips=r["occ_flips"],
+                err=r["err"], closest_as_tile_128=same)
+            log(f"  K1 {name} at tile {tile}: {clusters.shape[0]} tiles, "
+                f"kernel {ms:.3f} ms (CUDA events, 10 launches; tile 128 "
+                f"{timings[name]['ms']:.3f} ms, {ms / timings[name]['ms']:.2f}x"
+                f"), twin {r['twin_ms']:.3f} ms (profiler), bound "
+                f"{bound:.4f} ms ({by}), lane-slot share {share:.1%}; "
+                f"closest lanes {'bitwise' if same else 'NOT'} the tile-128 "
+                "results")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1987,6 +2098,9 @@ def phase_inverse(dev, gpu_line):
 # phase 10: T1 against its plain version, and the K1 microbenchmark
 # ---------------------------------------------------------------------------
 
+# the mangled name's part that picks T1's instance for 128-triangle tiles
+# out of the library's SASS (cuobjdump -sass)
+T1_SASS_FUNCTION = "matmul_only_kernelILi128E"
 T1_BLOCK = 128  # the relevance block of phase 3's comparison and the table
 T1_BLOCKS = (128, 256)  # the blocks the reference's tool runs
 # T1 and its plain version sum in other orders: the bound is this fraction
@@ -2066,25 +2180,30 @@ def t1_pairs(words, n, block):
 
 
 def t1_time(mesh_brute, b, feat, clusters, block, reps=5):
-    """T1 on phase 3's batch ``b`` at ``block``: CUDA events around
-    ``reps`` back-to-back launches, with its bounds and the (min, mean,
-    max) relevant tiles of a block -> dict."""
+    """T1 on phase 3's batch ``b`` at ``block`` on the table ``feat`` (its
+    tile read from it and ``clusters``): CUDA events around ``reps``
+    back-to-back launches, with its bounds and the (min, mean, max)
+    relevant tiles of a block -> dict."""
     o, d, t_init, act = b["origin"], b["direction"], b["t_init"], b["active"]
     n = o.shape[0]
+    tile = feat.shape[1] // (4 * clusters.shape[0])
+    # the tile is passed only where it is not the default 128, so that
+    # --kernel-times also times ports from before the tile was an argument
+    other = () if tile == 128 else (tile,)
     words = mesh_brute.relevance_words(clusters, o, d, t_init, act, block)
     pack = mesh_brute.matmul_only_pack(o, d, t_init)
     block_tiles, pairs, per_block = t1_pairs(words, n, block)
 
     def kernel():
-        return mesh_brute.matmul_only_kernel(words, pack, feat, block)
+        return mesh_brute.matmul_only_kernel(words, pack, feat, block, *other)
 
     n_bytes = (words.numel() * 4 + pack.numel() * 4 + feat.numel() * 4
                + n * 8)
-    flops = pairs * mesh_brute.TILE * T1_PAIR_FLOPS
+    flops = pairs * tile * T1_PAIR_FLOPS
     bound, by = bound_ms(n_bytes, flops)
-    floor = (pairs * mesh_brute.TILE * T1_PAIR_INSTRUCTIONS
+    floor = (pairs * tile * T1_PAIR_INSTRUCTIONS
              / FP32_INSTRUCTIONS_PER_S * 1e3)
-    return dict(block=block, ms=cuda_ms(kernel, reps), reps=reps,
+    return dict(block=block, tile=tile, ms=cuda_ms(kernel, reps), reps=reps,
                 block_tiles=block_tiles, pairs=pairs, bound=bound, by=by,
                 issue_floor=floor, gflop=flops / 1e9, mb=n_bytes / 1e6,
                 tiles_per_block=[int(per_block.min()), float(per_block.float()
@@ -2111,32 +2230,43 @@ def phase_t1(dev, b, k1_ms):
     n = o.shape[0]
     pack = mesh_brute.matmul_only_pack(o, d, t_init)
     max_abs, rel = 0.0, 0.0
-    for block in T1_BLOCKS:
-        words = mesh_brute.relevance_words(clusters, o, d, t_init, act, block)
-        t_k, i_k = mesh_brute.matmul_only_kernel(words, pack, feat, block)
-        t_p, _ = mesh_brute.matmul_only_plain(words, pack, feat, block)
-        scale, _ = mesh_brute.matmul_only_plain(words, pack.abs(), feat.abs(),
-                                                block)
-        torch.cuda.synchronize()
-        err = (t_k - t_p).abs()
-        b_rel = float((err / scale.clamp(min=1e-30)).max())
-        if bool(i_k.any()):
-            fail(f"T1 block {block}: the index output is not all zero")
-        if b_rel > T1_REL:
-            fail(f"T1 block {block}: {b_rel:.3g} of the sum of absolute "
-                 f"terms > {T1_REL}")
-        max_abs, rel = max(max_abs, float(err.max())), max(rel, b_rel)
-        log(f"  T1 vs plain, block {block}: {n} rays, max abs diff "
-            f"{float(err.max()):.3g}, {b_rel:.3g} of the sum of absolute "
-            f"terms (limit {T1_REL}); index output all zero")
+    # the scene's 128-triangle tables, and the same packed at T1_TILE
+    # (PRT_MESH_TILE's other sizes)
+    tile_feat, tile_cl = tables_at(scene, T1_TILE)[:2]
+    for tile, (tf, tc) in ((128, (feat, clusters)),
+                           (T1_TILE, (tile_feat, tile_cl))):
+        for block in T1_BLOCKS:
+            words = mesh_brute.relevance_words(tc, o, d, t_init, act, block)
+            t_k, i_k = mesh_brute.matmul_only_kernel(words, pack, tf, block,
+                                                     tile)
+            t_p, _ = mesh_brute.matmul_only_plain(words, pack, tf, block,
+                                                  tile)
+            scale, _ = mesh_brute.matmul_only_plain(words, pack.abs(),
+                                                    tf.abs(), block, tile)
+            torch.cuda.synchronize()
+            err = (t_k - t_p).abs()
+            b_rel = float((err / scale.clamp(min=1e-30)).max())
+            if bool(i_k.any()):
+                fail(f"T1 tile {tile} block {block}: the index output is not "
+                     "all zero")
+            if b_rel > T1_REL:
+                fail(f"T1 tile {tile} block {block}: {b_rel:.3g} of the sum "
+                     f"of absolute terms > {T1_REL}")
+            max_abs, rel = max(max_abs, float(err.max())), max(rel, b_rel)
+            log(f"  T1 vs plain, tile {tile}, block {block}: {n} rays, max "
+                f"abs diff {float(err.max()):.3g}, {b_rel:.3g} of the sum of "
+                f"absolute terms (limit {T1_REL}); index output all zero")
 
-    sass = sass_inner_loop(_cuda.LIBRARY._so_path(), "matmul_only_kernel")
+    sass = sass_inner_loop(_cuda.LIBRARY._so_path(), T1_SASS_FUNCTION)
     log(f"  T1 inner loop, SASS (cuobjdump -sass of the kernel library): "
         f"{json.dumps(sass)}")
     times = {blk: t1_time(mesh_brute, b, feat, clusters, blk)
              for blk in T1_BLOCKS}
-    for t in times.values():
-        log(f"  T1 block {t['block']}: {t['ms']:.3f} ms (CUDA events, "
+    tile_times = {blk: t1_time(mesh_brute, b, tile_feat, tile_cl, blk)
+                  for blk in T1_BLOCKS}
+    for t in list(times.values()) + list(tile_times.values()):
+        log(f"  T1 tile {t['tile']} block {t['block']}: {t['ms']:.3f} ms "
+            "(CUDA events, "
             f"{t['reps']} launches back to back); {t['block_tiles']} (block, "
             f"tile) pairs = {t['pairs']} (ray, tile) pairs, relevant tiles a "
             f"block min / mean / max {t['tiles_per_block']}; FLOP bound "
@@ -2214,7 +2344,10 @@ def phase_t1(dev, b, k1_ms):
                 tc_launches=tc_launches, err=max_abs,
                 rel=rel, ms=t["ms"], plain_ms=p_ms, relevance_ms=r_ms,
                 bound=t["bound"], by=t["by"], issue_floor=t["issue_floor"],
-                by_block={str(k): v for k, v in times.items()}, sass=sass,
+                by_block={str(k): v for k, v in times.items()},
+                by_tile={str(T1_TILE): {str(k): v
+                                        for k, v in tile_times.items()}},
+                sass=sass,
                 bench=bench, k1_over_t1=k1_ms / t["ms"], timed_by=timed_by)
 
 
@@ -2431,7 +2564,11 @@ def phase_scan_while(dev, gpu_line, regen_img, t_regen, spp=8):
 # phase 13: scan fwd+bwd at size
 # ---------------------------------------------------------------------------
 
-def phase_scan_fwd_bwd(dev, gpu_line, spp=4, seed=3):
+# phase 13's spp (cut from 4 for the script's time)
+SCAN_FB_SPP = 2
+
+
+def phase_scan_fwd_bwd(dev, gpu_line, spp=SCAN_FB_SPP, seed=3):
     import torch
     from photorealistic_rendering_using_opencl_tpu_torch.models import integrator, pathtracer
     from photorealistic_rendering_using_opencl_tpu_torch.ops import mesh_brute
@@ -3409,7 +3546,7 @@ MEDIUM_EXP = {"type": "exponential", "density": 0.4, "sigmaA": 0.1,
               "sigmaS": 0.6}
 # config 5: the equirect map's size (made from the seed) and the frame
 ENV_H, ENV_W, ENV_SEED = 1024, 2048, 5
-ENV_SIDE, ENV_CLI_SPP, ENV_FB_SPP = 1024, 16, 4
+ENV_SIDE, ENV_CLI_SPP, ENV_FB_SPP = 1024, 8, 2
 THIN_LENS = dict(aperture_radius=0.05, focal_distance=4.0)
 # an SDF normal is a central difference at 2e-5: an ulp of the card's
 # camera rays or sampled directions (sin, cos, tan, sqrt are 1 ulp from the
@@ -3445,7 +3582,7 @@ GOLDENS_SLICE8 = {
 SDF_K1_CALL = 6
 # path A's forward frames by regen, while and scan (8 before phase 27
 # took their time)
-SDF_SPP = 4
+SDF_SPP, SDF_FB_SPP = 2, 2
 
 
 def _hi_mesh():
@@ -3757,7 +3894,7 @@ def sdf_scene(d, mesh, bounces=None, side=FRAME):
     return cfg, scene, default_camera(side, side).pytree(d)
 
 
-def phase_sdf(dev, gpu_line, spp=None, fb_spp=4):
+def phase_sdf(dev, gpu_line, spp=None, fb_spp=SDF_FB_SPP):
     """Path A (BASELINE config 3): sdf_demo.json (3 SDFs, a box, 8 bounces)
     with icosphere_hi as its mesh."""
     import dataclasses
@@ -5404,10 +5541,11 @@ def phase_sharded(dev, gpu_line):
 
 # (a) body against segment with the card's pick, (b) with K1 pinned, (c)
 # the north star by tools.northstar (REMAT_SPP etc. set the work; widths
-# are never cut; (a) and (c) cut from 4 spp to 2 for the script's time)
+# are never cut; for the script's time (a) cut from 4 spp to 2, (c) from
+# 4 to 2 and then to 1)
 REMAT_SIDE, REMAT_SPP = 512, 2
 REMAT_K1_SIDE, REMAT_K1_SPP = 256, 2
-NORTH_SIDE, NORTH_SPP, NORTH_TILES = 1024, 2, 4
+NORTH_SIDE, NORTH_SPP, NORTH_TILES = 1024, 1, 4
 
 
 def _reset_peak(dev):
@@ -5784,6 +5922,16 @@ TC_FORMS = {"default": ("default", False), "bf16x3": ("bf16x3", False),
             "bf16x6": ("bf16x6", False), "bf16 table": ("highest", True)}
 # the brute-pinned cornell_hi regen frame of each form
 TC_SIDE, TC_SPP = 256, 2
+# (tile, relevance block) pairs beside the default (128, 256) at which
+# phase 28 holds the tensor-core kernel in each form of TC_SIZE_FORMS to
+# its plain version (PRT_MESH_TILE, PRT_MESH_BLOCK) on the populations
+# named there (None: all four; for time, the split forms on the two whose
+# plain version takes ~0.5 s, and the one-pass form, whose result the
+# prune moves most, on all), and renders a frame in TC_SIZE_FRAME_FORM
+TC_SIZES = ((256, 256), (128, 128), (128, 512))
+TC_SIZE_FORMS = {"default": None, "bf16x3": ("camera", "render"),
+                 "bf16x6": ("camera", "render")}
+TC_SIZE_FRAME_FORM = "default"
 TC_EVENT_REPS = 3
 # the H100 SXM's dense bf16 tensor-core peak (NVIDIA data sheet, 700 W)
 BF16_FLOP_PER_S = 989e12
@@ -5817,15 +5965,18 @@ def tc_form(feat, label):
     return table, mesh_brute.reduced_form(table)
 
 
-def tc_launch(table, clusters, b, form, norel=False):
+def tc_launch(table, clusters, b, form, norel=False, block=None):
+    """The tensor-core kernel on batch ``b``, the table's own tile, relevance
+    blocks of ``block`` rays (RELEVANCE_BLOCK when None)."""
     from photorealistic_rendering_using_opencl_tpu_torch.ops import mesh_brute
     return mesh_brute.mesh_brute_tc_kernel(
-        mesh_brute.form_fragments(table, form), clusters, b["origin"],
-        b["direction"], b["t_init"], b["active"], b["any_hit"], b["exclude"],
-        form, norel=norel)
+        mesh_brute.form_fragments(table, form,
+                                  mesh_brute.table_tile(table, clusters)),
+        clusters, b["origin"], b["direction"], b["t_init"], b["active"],
+        b["any_hit"], b["exclude"], form, norel=norel, block=block)
 
 
-def tc_bound(table, clusters, b, form, tri):
+def tc_bound(table, clusters, b, form, tri, block=None):
     """The tensor-core kernel's bound on one batch, from the work this
     batch needs: each active lane tests the tiles its block's relevance
     words set, an any-hit lane (by ``tri``, the plain version's result) up
@@ -5833,26 +5984,28 @@ def tc_bound(table, clusters, b, form, tri):
     TC_PAIR_TENSOR_OPS bf16 tensor-core operations a term and TC_PAIR_FLOPS
     FP32 ones; every active ray slab-tests every tile; the fragments, boxes
     and rays are read once and (t, tri) written once -> (ms, "bytes" or
-    "operations", the numbers)."""
+    "operations", the numbers).  The table's own tile; relevance blocks of
+    ``block`` rays (RELEVANCE_BLOCK when None)."""
     import torch
     from photorealistic_rendering_using_opencl_tpu_torch.ops import mesh_brute
+    block_rays = mesh_brute.RELEVANCE_BLOCK if block is None else block
+    tile = mesh_brute.table_tile(table, clusters)
     words = mesh_brute.relevance_words(clusters, b["origin"], b["direction"],
-                                       b["t_init"], b["active"],
-                                       mesh_brute.RELEVANCE_BLOCK)
+                                       b["t_init"], b["active"], block_rays)
     nt = clusters.shape[0]
     w = words.to(torch.int64) & 0xFFFFFFFF
     bits = ((w[..., None] >> torch.arange(32, device=w.device)) & 1)
     # relevant tiles of each block up to and including each tile
     upto = bits.flatten(1)[:, :nt].cumsum(1)
     n = b["origin"].shape[0]
-    block = torch.arange(n, device=w.device) // mesh_brute.RELEVANCE_BLOCK
-    tiles = upto[block, -1]
+    block_of = torch.arange(n, device=w.device) // block_rays
+    tiles = upto[block_of, -1]
     stop = b["any_hit"] & (tri >= 0)
-    tiles = torch.where(stop, upto[block, tri.clamp(min=0).long()
-                                   // mesh_brute.TILE], tiles)
-    pairs = int(tiles[b["active"]].sum()) * mesh_brute.TILE
+    tiles = torch.where(stop, upto[block_of, tri.clamp(min=0).long()
+                                   // tile], tiles)
+    pairs = int(tiles[b["active"]].sum()) * tile
     terms = len(mesh_brute.FORM_TERMS[form])
-    frag = mesh_brute.form_fragments(table, form)
+    frag = mesh_brute.form_fragments(table, form, tile)
     n_bytes = (frag.numel() * 2 + clusters.numel() * 4
                + n * (12 + 12 + 4 + 1 + 1 + 4) + n * (4 + 4))
     tensor_ops = pairs * TC_PAIR_TENSOR_OPS * terms
@@ -5878,21 +6031,36 @@ def tc_dt(t_k, t_p, same):
 
 
 def tc_compare(label, pop, table, clusters, b, form, problems, flush):
-    """The tensor-core kernel against its plain version on one batch:
-    winner flips on closest lanes, occlusion flips on any-hit lanes (each
-    at most FLIP_LIMIT a ray), inactive and any-hit lanes' t exactly the
-    plain version's, the t difference where the winners agree (at most
-    TC_DT_REL of max(|t|, 1)); the kernel's CUDA-event ms warm and
-    L2-flushed (event_ms), the plain version's by the host clock, and the
-    bound."""
+    """The tensor-core kernel against its plain version on one batch
+    (tc_check); the kernel's CUDA-event ms warm and L2-flushed (event_ms),
+    and the bound."""
+    r = tc_check(label, pop, table, clusters, b, form, problems)
+    warm = event_ms(lambda: tc_launch(table, clusters, b, form),
+                    TC_EVENT_REPS)
+    cold = event_ms(lambda: tc_launch(table, clusters, b, form),
+                    TC_EVENT_REPS, flush)
+    bound, by, work = tc_bound(table, clusters, b, form, r.pop("plain_tri"))
+    return dict(r, ms=warm["ms"], flushed_ms=cold["ms"], bound=bound, by=by,
+                work=work)
+
+
+def tc_check(label, pop, table, clusters, b, form, problems, block=None):
+    """The tensor-core kernel against its plain version on one batch, the
+    table's own tile, relevance blocks of ``block`` rays (RELEVANCE_BLOCK
+    when None): winner flips on closest lanes, occlusion flips on any-hit
+    lanes (each at most FLIP_LIMIT a ray), inactive and any-hit lanes' t
+    exactly the plain version's, the t difference where the winners agree
+    (at most TC_DT_REL of max(|t|, 1)); the plain version's ms by the host
+    clock -> the numbers, the kernel's outputs ("out") and the plain
+    version's winners ("plain_tri")."""
     import torch
     from photorealistic_rendering_using_opencl_tpu_torch.ops import mesh_brute
-    t_k, i_k = tc_launch(table, clusters, b, form)
+    t_k, i_k = tc_launch(table, clusters, b, form, block=block)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     t_p, i_p = mesh_brute.intersect_reduced_plain(
         table, clusters, b["origin"], b["direction"], b["t_init"],
-        b["active"], b["any_hit"], b["exclude"], form)
+        b["active"], b["any_hit"], b["exclude"], form, block=block)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     act, ah = b["active"], b["any_hit"]
@@ -5922,17 +6090,11 @@ def tc_compare(label, pop, table, clusters, b, form, problems, flush):
         problems.append(f"K1tc {label} {pop}: t parts from the plain "
                         f"version's by {dt_rel:.3g} of max(|t|, 1) where the "
                         f"winners agree > {TC_DT_REL}")
-    warm = event_ms(lambda: tc_launch(table, clusters, b, form),
-                    TC_EVENT_REPS)
-    cold = event_ms(lambda: tc_launch(table, clusters, b, form),
-                    TC_EVENT_REPS, flush)
-    bound, by, work = tc_bound(table, clusters, b, form, i_p)
     return dict(win_flips=int(win.sum()), occ_flips=int(occ.sum()),
                 closest=n_closest, any_hit=n_any,
                 hits=int((i_p[closest] >= 0).sum()), max_abs_dt=dt,
-                max_rel_dt=dt_rel,
-                ms=warm["ms"], flushed_ms=cold["ms"], plain_ms=plain_ms,
-                bound=bound, by=by, work=work, out=(t_k, i_k))
+                max_rel_dt=dt_rel, plain_ms=plain_ms, out=(t_k, i_k),
+                plain_tri=i_p)
 
 
 def tc_frame(cfg, scene, cam, side=TC_SIDE, spp=TC_SPP):
@@ -5986,6 +6148,7 @@ def phase_tc(dev, gpu_line, side=TC_SIDE, spp=TC_SPP):
         RENDER_CALL)
     flush = l2_flush(dev)
     saved = mesh_brute._PRECISION_NAME
+    saved_block = mesh_brute.RELEVANCE_BLOCK
     problems, forms, norel = [], {}, {}
     try:
         for label in TC_FORMS:
@@ -6017,6 +6180,7 @@ def phase_tc(dev, gpu_line, side=TC_SIDE, spp=TC_SPP):
                 if form == "bf16x6" and r["norel_lanes_moved"]:
                     problems.append(f"K1tc bf16x6 {pop}: PRT_MESH_NOREL moved "
                                     f"{r['norel_lanes_moved']} lanes")
+        sizes = tc_sizes(scene, pops, problems)
         mesh_brute._PRECISION_NAME = "highest"
         for pop, b in pops.items():
             args = (feat, clusters, b["origin"], b["direction"], b["t_init"],
@@ -6101,8 +6265,48 @@ def phase_tc(dev, gpu_line, side=TC_SIDE, spp=TC_SPP):
         if counts["K1tc"] != 2 * len(calls) or counts["K1"]:
             fail(f"phase 28: the second-pass frame launched {counts} for "
                  f"{len(calls)} mesh calls")
+        # the same frame through K1 at PRT_MESH_TILE's other sizes, and in
+        # TC_SIZE_FRAME_FORM at each of TC_SIZES.  K1's closest winners do
+        # not depend on the tile, but an any-hit lane's winner is its first
+        # occluding tile's, which the winner's validation re-tests: a
+        # grazing one may part, so at most FLIP_PIXELS of the pixels move
+        mesh_brute._PRECISION_NAME = "highest"
+        k1_tiles_main = 0
+        for tile in K1_TILES:
+            img, counts, secs = tc_frame(cfg_b, scene_at(scene, tile), cam,
+                                         side, spp)
+            k1_tiles_main += counts["K1"]
+            moved = int((img != img_h).any(-1).sum())
+            frames[f"highest, tile {tile}"] = dict(
+                mean=float(img.mean()), seconds=secs,
+                bias=float(img.mean()) / mean_h - 1.0, pixels_moved=moved,
+                **counts)
+            if (moved > FLIP_PIXELS * side * side or counts["K1tc"]
+                    or not counts["K1"]):
+                fail(f"phase 28: the frame at tile {tile} launched {counts} "
+                     f"and moved {moved} pixels from the 128-triangle "
+                     "tables' frame")
+        tc_sizes_main = 0
+        for tile, block in TC_SIZES:
+            tiled = scene_at(scene, tile)
+            table, _ = tc_form(tiled.bf_feat, TC_SIZE_FRAME_FORM)
+            tiled = dataclasses.replace(tiled, bf_feat=table)
+            mesh_brute.RELEVANCE_BLOCK = block
+            try:
+                img, counts, secs = tc_frame(cfg_b, tiled, cam, side, spp)
+            finally:
+                mesh_brute.RELEVANCE_BLOCK = saved_block
+            tc_sizes_main += counts["K1tc"]
+            frames[f"{TC_SIZE_FRAME_FORM}, tile {tile}, block {block}"] = dict(
+                mean=float(img.mean()), seconds=secs,
+                bias=float(img.mean()) / mean_h - 1.0,
+                pixels_moved=int((img != img_h).any(-1).sum()), **counts)
+            if counts["K1tc"] == 0 or counts["K1"]:
+                fail(f"phase 28: the frame at tile {tile}, block {block} "
+                     f"launched {counts}")
     finally:
         mesh_brute._PRECISION_NAME = saved
+        mesh_brute.RELEVANCE_BLOCK = saved_block
     for label, f in frames.items():
         log(f"  frame {side}^2 x {spp} spp (regen, brute) {label}: mean "
             f"{f['mean']:.6f}"
@@ -6115,22 +6319,63 @@ def phase_tc(dev, gpu_line, side=TC_SIDE, spp=TC_SPP):
     log(f"  phase 28 took {time.perf_counter() - t_phase:.1f} s; on {gpu_line}")
     cam_pop = forms["bf16x6"]["camera"]
     return dict(forms=forms, k1_norel=norel, force_xla=force, frames=frames,
-                launches=main_tc, ms=cam_pop["ms"],
+                sizes=sizes, launches=main_tc, sizes_launches=tc_sizes_main,
+                k1_tiles_launches=k1_tiles_main, ms=cam_pop["ms"],
                 flushed_ms=cam_pop["flushed_ms"],
                 plain_ms=cam_pop["plain_ms"], bound=cam_pop["bound"],
                 by=cam_pop["by"],
-                err=max(r["max_abs_dt"] for v in forms.values()
-                        for r in v.values()))
+                err=max(r["max_abs_dt"] for v in list(forms.values())
+                        + [f for size in sizes.values()
+                           for f in size.values()] for r in v.values()))
+
+
+def tc_sizes(scene, pops, problems):
+    """PRT_MESH_TILE / PRT_MESH_BLOCK: the tensor-core kernel in each form
+    of TC_SIZE_FORMS at each (tile, relevance block) of TC_SIZES, on the
+    scene's tables packed at the tile (tables_at), against its plain
+    version at the same sizes on the form's populations (tc_check's limits):
+    flips, t error, CUDA-event ms (event_ms, warm) and the bound ->
+    {"tile x block": {label: {population: numbers}}}."""
+    from photorealistic_rendering_using_opencl_tpu_torch.ops import mesh_brute
+    out = {}
+    for tile, block in TC_SIZES:
+        feat, clusters = tables_at(scene, tile)[:2]
+        size = out[f"{tile} x {block}"] = {}
+        for label, only in TC_SIZE_FORMS.items():
+            table, form = tc_form(feat, label)
+            size[label] = {}
+            for pop, b in pops.items():
+                if only is not None and pop not in only:
+                    continue
+                r = tc_check(label, f"{pop} (tile {tile}, block {block})",
+                             table, clusters, b, form, problems, block)
+                r.pop("out")
+                ms = event_ms(lambda: tc_launch(table, clusters, b, form,
+                                                block=block),
+                              TC_EVENT_REPS)["ms"]
+                bound, by, _ = tc_bound(table, clusters, b, form,
+                                        r.pop("plain_tri"), block)
+                size[label][pop] = dict(r, ms=ms, bound=bound, by=by)
+                log(f"  K1tc {label} ({form}) {pop} at tile {tile}, block "
+                    f"{block}: winner flips {r['win_flips']}/{r['closest']}, "
+                    f"occlusion flips {r['occ_flips']}/{r['any_hit']}, max "
+                    f"|dt| {r['max_abs_dt']:.3g} ({r['max_rel_dt']:.3g} of "
+                    f"max(|t|, 1)); kernel {ms:.3f} ms (event_ms, "
+                    f"{TC_EVENT_REPS} launches), plain {r['plain_ms']:.1f} ms "
+                    f"(host clock); bound {bound:.4f} ms ({by}), "
+                    f"{bound / ms:.2f} of it")
+    return out
 
 
 def phase_k1_sweep(dev, pops):
-    """--k1-sweep: K1_SWEEP's configurations on phase 3's populations."""
+    """--k1-sweep: K1_SWEEP's configurations and K1_TILE_SWEEP's (tile,
+    configuration) pairs on phase 3's populations."""
     from photorealistic_rendering_using_opencl_tpu_torch.scene.loader import load_scene
     log("[3b] K1's configurations, each its own build (K1_SWEEP)")
     _, scene = load_scene(os.path.join(REPO, "scenes/cornell_hi.json"),
                           models_dir=os.path.join(REPO, "scenes/assets"),
                           device=dev)
-    wrong = k1_sweep(scene.bf_feat, scene.bf_clusters, pops)
+    wrong = k1_sweep(scene, pops)
     if wrong:
         fail(f"K1 sweep: configurations whose outputs differ from the "
              f"kernel library's: {wrong[:6]}")
@@ -6201,8 +6446,13 @@ def kernel_times(dev, root):
     res["T1"] = {str(blk): t1_time(mesh_brute, b, scene.bf_feat,
                                    scene.bf_clusters, blk)
                  for blk in T1_BLOCKS}
+    # the 128-triangle instance; a port from before the tile was a template
+    # argument has the one kernel of the plain name
     res["T1_sass"] = sass_inner_loop(_cuda.LIBRARY._so_path(),
-                                     "matmul_only_kernel")
+                                     T1_SASS_FUNCTION)
+    if "no function" in res["T1_sass"].get("note", ""):
+        res["T1_sass"] = sass_inner_loop(_cuda.LIBRARY._so_path(),
+                                         "matmul_only_kernel")
     log("kernel times: " + json.dumps(res))
 
 
@@ -6342,7 +6592,7 @@ def main(argv=None) -> int:
         done(20)
         log("partial run (--paths: phases 1-2 and 17-20); no result line")
         return 0
-    k1_err, k1_times, k1_sort_cost, k1_pops = phase_k1(dev)
+    k1_err, k1_times, k1_sort_cost, k1_pops, k1_by_tile = phase_k1(dev)
     k1_random = k1_pops["random"]
     done(3)
     if sweep:
@@ -6411,7 +6661,7 @@ def main(argv=None) -> int:
                 "bench_kernel": t1["k1_launches"],
                 "forward 512^2 x 8 spp (scan)": sw["scan"]["k1"],
                 "forward 512^2 x 8 spp (while)": sw["while"]["k1"],
-                "fwd+bwd 512^2 x 4 spp (scan)": sfb["k1"],
+                f"fwd+bwd 512^2 x {SCAN_FB_SPP} spp (scan)": sfb["k1"],
                 "goldens (scan)": k1_goldens,
                 f"CLI {CLI_SIDE}^2 x {CLI_RESUME_SPP} spp (app.main, while)":
                     cli["k1"],
@@ -6419,7 +6669,8 @@ def main(argv=None) -> int:
                     cli["aov"]["k1"],
                 **{f"A {m} 512^2 x {SDF_SPP} spp": r["K1"]
                    for m, r in sdf["forward"].items()},
-                "A fwd+bwd 512^2 x 4 spp (regen_scan)": sdf["fwd_bwd"]["K1"],
+                f"A fwd+bwd 512^2 x {SDF_FB_SPP} spp (regen_scan)":
+                    sdf["fwd_bwd"]["K1"],
                 **{f"B {k} 512^2 (regen)": r["forward"]["K1"]
                    for k, r in med.items() if k != "card_vs_cpu"},
                 **{f"B {k} fwd+bwd 512^2 (regen_scan)":
@@ -6429,7 +6680,10 @@ def main(argv=None) -> int:
                     bdpt["cornell_hi_brute"]["K1"],
                 **{f"remat={m} fwd+bwd {REMAT_K1_SIDE}^2 x {REMAT_K1_SPP} "
                    "spp (regen_scan, brute)": remat["b"][m]["forward"]["K1"]
-                   for m in ("body", "segment")}}
+                   for m in ("body", "segment")},
+                f"phase 28 regen frames {TC_SIDE}^2 x {TC_SPP} spp at tiles "
+                f"{' and '.join(map(str, K1_TILES))}":
+                    tc["k1_tiles_launches"]}
     w1_paths = {"default forward 512^2 x 8 spp (regen)":
                     default["forward"]["W1"],
                 "default fwd+bwd 512^2 x 4 spp (regen_scan)":
@@ -6470,7 +6724,9 @@ def main(argv=None) -> int:
          "source": f"{PKG}/csrc/mesh_brute.cu",
          "replaces": "photorealistic_rendering_using_opencl_tpu/ops/mesh_brute.py:301",
          "launches": sum(k1_paths.values()), "launches_by_path": k1_paths,
-         "max_abs_err": max(k1_err, cli["k1_err"], sdf["k1_err"]),
+         "max_abs_err": max(k1_err, cli["k1_err"], sdf["k1_err"],
+                            *(v["err"] for pops in k1_by_tile.values()
+                              for v in pops.values())),
          "ms": cam["ms"],
          "plain_ms": cam["plain_ms"],
          "bound_ms": cam["bound"], "bound_by": cam["by"], "library_ms": None,
@@ -6489,6 +6745,14 @@ def main(argv=None) -> int:
                                ("bound_ms", "bound"),
                                ("lane_slot_share", "share"))},
          "ray_sort_on_render_population": k1_sort_cost,
+         "by_tile": {str(tile): {
+             f"{key}_by_population": {k: v[field] for k, v in pops.items()}
+             for key, field in (("ms", "ms"), ("plain_ms", "plain_ms"),
+                                ("bound_ms", "bound"),
+                                ("win_flips", "win_flips"),
+                                ("occ_flips", "occ_flips"),
+                                ("max_abs_err", "err"))}
+             for tile, pops in k1_by_tile.items()},
          "render_warps_shuffled_ms": k1_times["render"]["warps_shuffled_ms"],
          "regen_frame_sort_on_off_s": regen_sort},
         {"name": "K2 tonemap", "route": "cuda",
@@ -6528,7 +6792,8 @@ def main(argv=None) -> int:
                          "table then a masked sum, would materialise "
                          "N x 4*Tpad floats (343 GB at 262,144 rays on "
                          "cornell_hi)",
-         "by_block": t1["by_block"], "inner_loop_sass": t1["sass"],
+         "by_block": t1["by_block"], "by_tile": t1["by_tile"],
+         "inner_loop_sass": t1["sass"],
          "timed_by": t1["timed_by"]},
     ]
     kernels.append(
@@ -6578,6 +6843,10 @@ def main(argv=None) -> int:
                                ("tri_tests_per_ray", "tri_tests_per_ray"))}})
     tc_paths = {f"phase 28 regen frames {TC_SIDE}^2 x {TC_SPP} spp, each "
                 "reduced form and bf16x3 with the second pass": tc["launches"],
+                f"phase 28 regen frames {TC_SIDE}^2 x {TC_SPP} spp in "
+                f"{TC_SIZE_FRAME_FORM} at (tile, block) "
+                + ", ".join(f"({t}, {b})" for t, b in TC_SIZES):
+                    tc["sizes_launches"],
                 "bench_kernel": t1["tc_launches"]}
     kernels.append(
         {"name": "K1tc mesh_brute_tc", "route": "cuda",
@@ -6604,7 +6873,8 @@ def main(argv=None) -> int:
                      "camera population; plain_ms: host clock around one "
                      "call of intersect_reduced_plain, ending in "
                      "torch.cuda.synchronize",
-         "by_form": tc["forms"], "frames": tc["frames"],
+         "by_form": tc["forms"], "by_size": tc["sizes"],
+         "frames": tc["frames"],
          "k1_norel": tc["k1_norel"], "force_xla": tc["force_xla"]})
     for name, line in (("T2a", 57), ("T2b", 112)):
         k = t2[name]

@@ -7,7 +7,8 @@
 //
 // What it computes (the TPU kernel's function): for each ray, the sum over
 // the tiles whose relevance bit is set for the ray's block of the column
-// sums of A_tile^T . p, i.e. over those tiles' 128 triangles of
+// sums of A_tile^T . p, i.e. over those tiles' TILE triangles (128, 256
+// or 512, PRT_MESH_TILE's sizes, one instance each) of
 // den + t*den + u*den + v*den.  Inputs: the relevance words of
 // mesh_brute._block_relevance (one row of ceil(nt/32) 32-bit words per
 // block of `block` rays, 128 or 256, bit j = tile j; bits at or past nt
@@ -18,7 +19,7 @@
 // (pair_t's den / t*den / u*den / v*den, in its order), then
 // (den + t*den) + (u*den + v*den) joins the ray's running sum: K1's
 // per-pair arithmetic with the hit test taken out.  The tile sum is not
-// factored (sum_c A_c . p = (sum_c A_c) . p would do 1/128 of the work
+// factored (sum_c A_c . p = (sum_c A_c) . p would do 1/TILE of the work
 // and not be K1's arithmetic).
 //
 // Bound: FP32 issue.  37 operations a (ray, triangle) pair of a relevant
@@ -44,12 +45,13 @@
 //     fourth, so a warp's work is a quarter of a group's and the grid has
 //     4x the warps of one a group: the groups' tile counts vary ~4x
 //     (chip_smoke.py phase 10), and finer pieces even out the SMs' loads;
-//   - a warp copies each of its tiles, in halves of 64 triangles (19 rows
-//     x 256 B), into a two-stage ring of its own in shared memory with
-//     cp.async (one 16-byte piece a lane a row-half, through the L2, where
-//     the whole table sits: ~21 MB for cornell_hi): the next half is in
-//     flight while the warp computes on this one, and __syncwarp after the
-//     wait and after the compute is the only synchronisation in the loop;
+//   - a warp copies each of its tiles, in stages of 64 triangles (19 rows
+//     x 256 B; a tile is TILE / 64 of them), into a two-stage ring of its
+//     own in shared memory with cp.async (one 16-byte piece a lane a
+//     row-stage, through the L2, where the whole table sits: ~21 MB for
+//     cornell_hi): the next stage is in flight while the warp computes on
+//     this one, and __syncwarp after the wait and after the compute is the
+//     only synchronisation in the loop;
 //   - the 4 running sums of a lane are independent, one a ray; at the end
 //     the warps' sums meet in shared memory behind the kernel's one
 //     barrier and the first warp adds them in warp order;
@@ -63,15 +65,14 @@
 
 namespace {
 
-constexpr int TILE = 128;  // triangles per tile (mesh_brute.TILE)
 constexpr int NCOEF = 19;  // non-zero coefficient rows of a tile
 constexpr int RAYS = 4;    // rays a lane
 constexpr int WARP_RAYS = 32 * RAYS;
 constexpr int WARPS = 4;  // warps a CTA, each on every WARPS-th tile
 constexpr int MIN_CTAS = 3;  // CTAs an SM must hold (sets the register cap)
-constexpr int HALF = TILE / 2;  // triangles a stage holds
-constexpr int GROUPS = HALF / 4;  // 4-triangle groups a stage
-constexpr int PIECES = NCOEF * HALF / 4;  // 16-byte copies a stage: 304
+constexpr int STAGE = 64;  // triangles a stage holds, whatever the tile
+constexpr int GROUPS = STAGE / 4;  // 4-triangle groups a stage
+constexpr int PIECES = NCOEF * STAGE / 4;  // 16-byte copies a stage: 304
 
 // (table row, column group) of the k-th non-zero coefficient, as in K1:
 //   den: rows 3-5; t*den: rows 0-2, 9; u*den, v*den: rows 3-8 each
@@ -121,14 +122,17 @@ __device__ __forceinline__ float lane4(const float4& v, int t) {
   return t == 0 ? v.x : t == 1 ? v.y : t == 2 ? v.z : v.w;
 }
 
+template <int TILE>
 __global__ void __launch_bounds__(32 * WARPS, MIN_CTAS)
 matmul_only_kernel(const uint32_t* __restrict__ rel, int nwords,
                    const float* __restrict__ pack,
                    const float* __restrict__ feat, long long row_stride,
                    int nt, long long n, int block, float* __restrict__ out_t,
                    int32_t* __restrict__ out_i) {
-  // per warp, two stages of half a tile: [stage][coefficient][triangle]
-  __shared__ __align__(16) float ring[WARPS][2][NCOEF][HALF];
+  constexpr int PARTS = TILE / STAGE;  // stages a tile
+  static_assert(TILE % STAGE == 0, "whole stages");
+  // per warp, two stages: [stage][coefficient][triangle]
+  __shared__ __align__(16) float ring[WARPS][2][NCOEF][STAGE];
 
   const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5;
   const long long ray0 = (long long)blockIdx.x * WARP_RAYS;
@@ -161,13 +165,13 @@ matmul_only_kernel(const uint32_t* __restrict__ rel, int nwords,
     }
   };
 
-  // copy half h of tile j into stage s: lane takes pieces lane + 32m
+  // copy part h of tile j into stage s: lane takes pieces lane + 32m
   auto issue = [&](int s, int j, int h) {
-    const float* src = feat + (long long)j * 4 * TILE + h * HALF;
+    const float* src = feat + (long long)j * 4 * TILE + h * STAGE;
     float* dst = &ring[wib][s][0][0];
     for (int p = lane; p < PIECES; p += 32) {
       const int k = p >> 4, col = (p & 15) * 4;
-      cp_async16(dst + k * HALF + col,
+      cp_async16(dst + k * STAGE + col,
                  src + coef_row(k) * row_stride + coef_group(k) * TILE + col);
     }
   };
@@ -177,14 +181,12 @@ matmul_only_kernel(const uint32_t* __restrict__ rel, int nwords,
   for (int q = 0; q < RAYS; ++q) acc[q] = 0.f;
 
   int j = next_tile(), h = 0, s = 0;
-  bool have = j >= 0;  // a half is in flight for the compute below
+  bool have = j >= 0;  // a stage is in flight for the compute below
   if (have) issue(0, j, 0);
   cp_async_commit();
   while (have) {
-    // start the next half, then wait for this one
-    if (h == 0) {
-      h = 1;
-    } else {
+    // start the next stage, then wait for this one
+    if (++h == PARTS) {
       j = next_tile();
       h = 0;
     }
@@ -200,7 +202,7 @@ matmul_only_kernel(const uint32_t* __restrict__ rel, int nwords,
       float4 c4[NCOEF];
 #pragma unroll
       for (int k = 0; k < NCOEF; ++k)
-        c4[k] = *reinterpret_cast<const float4*>(st + k * HALF + 4 * g);
+        c4[k] = *reinterpret_cast<const float4*>(st + k * STAGE + 4 * g);
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
         float kk[NCOEF];
@@ -236,28 +238,51 @@ matmul_only_kernel(const uint32_t* __restrict__ rel, int nwords,
   }
 }
 
+template <int TILE>
+int launch(const uint32_t* rel, int nwords, const float* pack,
+           const float* feat, long long row_stride, int nt, long long n,
+           int block, float* out_t, int32_t* out_i, cudaStream_t stream) {
+  // the ring and the sums take 40,960 B a CTA: ask for the largest
+  // shared-memory carveout (on the current device) so that 4 CTAs fit an SM
+  const cudaError_t e = cudaFuncSetAttribute(
+      matmul_only_kernel<TILE>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      (int)cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  const long long ctas = (n + WARP_RAYS - 1) / WARP_RAYS;
+  matmul_only_kernel<TILE><<<(unsigned)ctas, 32 * WARPS, 0, stream>>>(
+      rel, nwords, pack, feat, row_stride, nt, n, block, out_t, out_i);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
+// `tile`: the table's triangles a tile, 128, 256 or 512; `block`: the rays
+// a relevance block, 128 or 256.  Anything else is refused
+// (cudaErrorInvalidValue) before a launch.
 int prt_matmul_only(const uint32_t* rel, int nwords, const float* pack,
-                    const float* feat, long long row_stride, int nt,
+                    const float* feat, long long row_stride, int nt, int tile,
                     long long n, int block, float* out_t, int32_t* out_i,
                     void* stream) {
   // cp.async copies 16-byte pieces: the table and its rows must be aligned
   if ((uintptr_t)feat % 16 || row_stride % 4 || (block != 128 && block != 256))
     return (int)cudaErrorInvalidValue;
   if (n <= 0) return 0;
-  // the ring and the sums take 40,960 B a CTA: ask for the largest
-  // shared-memory carveout (on the current device) so that 4 CTAs fit an SM
-  const cudaError_t e = cudaFuncSetAttribute(
-      matmul_only_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-      (int)cudaSharedmemCarveoutMaxShared);
-  if (e != cudaSuccess) return (int)e;
-  const long long ctas = (n + WARP_RAYS - 1) / WARP_RAYS;
-  matmul_only_kernel<<<(unsigned)ctas, 32 * WARPS, 0, (cudaStream_t)stream>>>(
-      rel, nwords, pack, feat, row_stride, nt, n, block, out_t, out_i);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (tile) {
+    case 128:
+      return launch<128>(rel, nwords, pack, feat, row_stride, nt, n, block,
+                         out_t, out_i, s);
+    case 256:
+      return launch<256>(rel, nwords, pack, feat, row_stride, nt, n, block,
+                         out_t, out_i, s);
+    case 512:
+      return launch<512>(rel, nwords, pack, feat, row_stride, nt, n, block,
+                         out_t, out_i, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

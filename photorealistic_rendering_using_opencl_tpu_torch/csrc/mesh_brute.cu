@@ -8,8 +8,10 @@
 // What it computes (same semantics as the TPU kernel): for each ray, the
 // lowest-t triangle whose den-multiplied test passes and whose t beats the
 // lane's t_init, from the coefficient table of pack_brute ([16, 4*Tpad],
-// tile-grouped columns [den | t*den | u*den | v*den], 128 triangles a
-// tile).  Inactive lanes never record a hit; tiles are visited in table
+// tile-grouped columns [den | t*den | u*den | v*den], TILE triangles a
+// tile: 128, 256 or 512, PRT_MESH_TILE's sizes, one instance of the kernel
+// each, picked by the C entry's `tile`).  Inactive lanes never record a
+// hit; tiles are visited in table
 // order; across tiles a strictly smaller t wins, within a tile the lowest
 // index wins ties; an any-hit lane stops after the first tile that occludes
 // it and returns that tile's winner; a lane's `exclude` triangle never
@@ -38,7 +40,7 @@
 //   __ballot_sync gives the warp's mask; a warp no lane needs skips the
 //   tile, and a warp whose lanes are all done leaves the loop.
 // - spread mode (fewer than PER_THREAD_FROM lanes need the tile): every
-//   lane tests 4 of the tile's 128 triangles (c = lane + 32q), PASS of them
+//   lane tests TILE / 32 of the tile's triangles (c = lane + 32q), PASS of them
 //   a pass, their 19 non-zero coefficients each loaded (coalesced) into
 //   registers; for each needing lane (walked with __ffs) its ray is
 //   broadcast with __shfl_sync, every lane tests its triangles, and a
@@ -49,7 +51,7 @@
 //   pass hold fewer registers, for more warps an SM, which the slab tests
 //   (most of the render path's time) need.
 // - per-thread mode (at least PER_THREAD_FROM lanes need it): each
-//   needing lane runs the 128 triangles itself, the coefficients broadcast
+//   needing lane runs the TILE triangles itself, the coefficients broadcast
 //   from L1/L2 (the whole table, ~21 MB for cornell_hi, sits in the 50 MB
 //   L2; a warp-private copy in shared memory measured slower, PERF.md).
 // The per-pair arithmetic is the first design's, op by op, so every (ray,
@@ -74,9 +76,7 @@
 
 namespace {
 
-constexpr int TILE = 128;     // triangles per tile (mesh_brute.TILE)
 constexpr int NCOEF = 19;     // non-zero coefficient rows of a tile
-constexpr int SLOTS = TILE / 32;  // triangles a lane tests in spread mode
 constexpr float EPS = 1e-5f;  // ops/math.py EPS
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -100,7 +100,6 @@ constexpr int PER_THREAD_FROM = PRT_K1_PER_THREAD_FROM;
 constexpr int PASS = PRT_K1_PASS;
 static_assert(BLOCK_RAYS % 32 == 0 && BLOCK_RAYS <= 1024, "whole warps");
 static_assert(PER_THREAD_FROM >= 1 && PER_THREAD_FROM <= 33, "a popcount");
-static_assert(SLOTS % PASS == 0, "PASS divides a lane's 4 triangles");
 
 // (table row, column group) of the k-th non-zero coefficient; the group is
 // den(0) | t*den(1) | u*den(2) | v*den(3), the row indexes the ray feature
@@ -177,12 +176,16 @@ __device__ __forceinline__ void take_tile(float tmin, int tri, bool anyh,
 }
 
 // Tile j's triangles for the warp's needing lanes `mask` (see the header).
-// Spread mode takes the lane's 4 triangles in SLOTS / PASS passes of PASS
-// triangles: fewer coefficient registers, more broadcasts and reductions.
+// Spread mode takes the lane's SLOTS triangles in SLOTS / PASS passes of
+// PASS triangles: fewer coefficient registers, more broadcasts and
+// reductions.
+template <int TILE>
 __device__ __forceinline__ void test_tile(
     const float* __restrict__ feat, long long row_stride, int j,
     unsigned mask, bool need, int lane, const Ray& r, bool anyh, float& best,
     int& best_i, bool& live) {
+  constexpr int SLOTS = TILE / 32;  // triangles a lane tests in spread mode
+  static_assert(SLOTS % PASS == 0, "PASS divides a lane's triangles");
   const float* tile = feat + (long long)j * 4 * TILE;
   const int base = j * TILE;
   if (__popc(mask) < PER_THREAD_FROM) {
@@ -226,7 +229,7 @@ __device__ __forceinline__ void test_tile(
     take_tile(own_t, base + own_c, anyh, best, best_i, live);
     return;
   }
-  // per-thread mode: each needing lane runs the tile's 128 triangles, the
+  // per-thread mode: each needing lane runs the tile's TILE triangles, the
   // coefficients broadcast from L1/L2
   if (!need) return;
   float tmin = CUDART_INF_F;
@@ -243,6 +246,7 @@ __device__ __forceinline__ void test_tile(
   take_tile(tmin, base + targ, anyh, best, best_i, live);
 }
 
+template <int TILE>
 __global__ void __launch_bounds__(BLOCK_RAYS)
 mesh_brute_kernel(const float* __restrict__ feat, long long row_stride,
                   int nt, const float* __restrict__ clusters,
@@ -333,8 +337,8 @@ mesh_brute_kernel(const float* __restrict__ feat, long long row_stride,
       }
     }
     if (mask)
-      test_tile(feat, row_stride, j, mask, need, lane, r, anyh, best, best_i,
-                live);
+      test_tile<TILE>(feat, row_stride, j, mask, need, lane, r, anyh, best,
+                      best_i, live);
   }
 
   if (inb) {
@@ -344,33 +348,62 @@ mesh_brute_kernel(const float* __restrict__ feat, long long row_stride,
   }
 }
 
+template <int TILE>
+int launch(const float* feat, long long row_stride, int nt,
+           const float* clusters, const float* origin, const float* direction,
+           const float* t_init, const uint8_t* active, const uint8_t* any_hit,
+           const int32_t* exclude, long long n, float* out_t, int32_t* out_tri,
+           unsigned long long* counters, int norel, cudaStream_t stream) {
+  // the tile boxes take 32 B a tile, whatever the tile's size; above the
+  // default 48 KB a launch must opt in, on the current device, which this
+  // sets on every such launch (a few microseconds; 1,536 tiles and up).
+  // The card's opt-in limit (227 KB on an H100: 7,264 tiles) makes larger
+  // tables fail here; the brute backend's largest, 262,144 triangles, is
+  // 2,048 tiles of 128.
+  const int smem = nt * 2 * (int)sizeof(float4);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        mesh_brute_kernel<TILE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const long long blocks = (n + BLOCK_RAYS - 1) / BLOCK_RAYS;
+  mesh_brute_kernel<TILE><<<(unsigned)blocks, BLOCK_RAYS, smem, stream>>>(
+      feat, row_stride, nt, clusters, origin, direction, t_init, active,
+      any_hit, exclude, n, out_t, out_tri, counters, norel);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-int prt_mesh_brute(const float* feat, long long row_stride, int nt,
+// `tile`: the table's triangles a tile, 128, 256 or 512; any other size is
+// refused (cudaErrorInvalidValue) before a launch
+int prt_mesh_brute(const float* feat, long long row_stride, int nt, int tile,
                    const float* clusters, const float* origin,
                    const float* direction, const float* t_init,
                    const uint8_t* active, const uint8_t* any_hit,
                    const int32_t* exclude, long long n, float* out_t,
                    int32_t* out_tri, unsigned long long* counters,
                    int norel, void* stream) {
-  // the tile boxes take 32 B a tile; above the default 48 KB a launch must
-  // opt in, on the current device, which this sets on every such launch
-  // (a few microseconds; 1,536 tiles and up).  The card's opt-in limit
-  // (227 KB on an H100: 7,264 tiles) makes larger tables fail here.
-  const int smem = nt * 2 * (int)sizeof(float4);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        mesh_brute_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (tile) {
+    case 128:
+      return launch<128>(feat, row_stride, nt, clusters, origin, direction,
+                         t_init, active, any_hit, exclude, n, out_t, out_tri,
+                         counters, norel, s);
+    case 256:
+      return launch<256>(feat, row_stride, nt, clusters, origin, direction,
+                         t_init, active, any_hit, exclude, n, out_t, out_tri,
+                         counters, norel, s);
+    case 512:
+      return launch<512>(feat, row_stride, nt, clusters, origin, direction,
+                         t_init, active, any_hit, exclude, n, out_t, out_tri,
+                         counters, norel, s);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  const long long blocks = (n + BLOCK_RAYS - 1) / BLOCK_RAYS;
-  mesh_brute_kernel<<<(unsigned)blocks, BLOCK_RAYS, smem,
-                      (cudaStream_t)stream>>>(
-      feat, row_stride, nt, clusters, origin, direction, t_init, active,
-      any_hit, exclude, n, out_t, out_tri, counters, norel);
-  return (int)cudaGetLastError();
 }
 
 const char* prt_cuda_error_string(int code) {

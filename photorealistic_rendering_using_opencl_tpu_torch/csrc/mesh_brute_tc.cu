@@ -1,409 +1,42 @@
-// K1's reduced-precision forms on the tensor cores: closest-hit / any-hit
-// mesh intersection with the den-multiplied Moller-Trumbore quantities
-// computed by bf16 mma.sync, for Hopper (sm_90a).
+// K1's reduced-precision forms on the tensor cores (K1tc), for Hopper
+// (sm_90a): the C entry, and the kernel's instances for tiles of 128
+// triangles.  The kernel, what it computes, its design and its bound are
+// in mesh_brute_tc.cuh; the instances for tiles of 256 and 512 triangles
+// are in mesh_brute_tc_256.cu and mesh_brute_tc_512.cu.
 //
 // Replaces the split and bf16-table branches of the Pallas TPU kernel
 // photorealistic_rendering_using_opencl_tpu/ops/mesh_brute.py:_make_kernel
 // (:301; the split at :339-357, the bf16 table at :366-368, the dot at
 // :396-404), launched by _intersect_pallas, together with the XLA-side
-// relevance pass _block_relevance that fed it.  K1 (mesh_brute.cu) stays
-// the FP32 form; this kernel runs the three reduced ones
-// (ops/mesh_brute.py: reduced_form):
-//   form 0, "bf16":   one term, table and ray features rounded to bf16 (the
-//                     bf16 table, or PRT_MESH_PRECISION=default's single
-//                     pass over the f32 table cast to bf16);
-//   form 1, "bf16x3": the stacked-K split, terms (0,0) (1,0) (0,1);
-//   form 2, "bf16x6": terms (0,0) (1,0) (2,0) (0,1) (1,1) (0,2),
-// a term (i, j) adding table part i times ray part j, each part bf16 and
-// rounded to nearest-even from what the parts before it left
-// (mesh_brute.hi_lo_parts; the table's parts come split, the rays' are
-// split here with __float2bfloat16_rn and subtraction).
-//
-// What it computes (ops/mesh_brute.py: intersect_reduced_plain, its plain
-// version): the TPU kernel's result in the form.  A block is the
-// reference's BLOCK = 256 rays in lane order; a tile is tested for every
-// lane of a block when some active ray of the block enters the tile's
-// unpadded box, from EPS on, no later than its t_init (the reference's
-// relevance words, all ones under `norel`).  In a reduced form this prune
-// is part of the result: a false hit can lie outside its tile's box, so
-// the kernel takes the reference's prune and not K1's padded per-lane one.
-// In a split form the control values (t_init, the active and any-hit
-// flags, the excluded triangle) are rebuilt from the ray's distinct parts,
-// as the reference's kernel rebuilds them: bf16x3's two parts round
-// t_init, and t falls back to that rounded value.  Tiles go in table
-// order; across tiles a strictly smaller t wins, within a tile the lowest
-// index wins ties; an inactive lane never records a hit; an any-hit lane
-// stops after the first tile that occludes it, with that tile's winner; a
-// lane's excluded triangle never hits.
-//
-// Design, simple first.  A CTA is one block of 256 rays, a warp 32 of
-// them.  The CTA first computes the block's relevance bits (each thread
-// slab-tests its ray against every tile box, a ballot a tile, one
-// atomicOr a warp into shared memory, one barrier).  For each relevant
-// tile a warp with a live lane runs the tile's 128 triangles in 8 chunks
-// of 16.  A chunk is 4 quantities x 4 groups of 8 rays x T terms of
-// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32: A is quantity q
-// (den, t*den, u*den, v*den) of the chunk's 16 triangles over the 16 ray
-// features (its fragments pre-arranged by mesh_brute.tc_fragments, one
-// 16-byte load a lane), B the 8 rays' features (rows 10-15 zero: the
-// control values stay out of the products, and a lane whose t_init would
-// make the reference's products NaN records no hit), with f32
-// accumulators.  So
-// den, t*den, u*den and v*den of a (triangle, ray) pair sit in the same
-// lane's accumulators and the hit test runs in registers, with the plain
-// version's f32 operations, each rounded on its own.  Each lane keeps the
-// lowest (t, index) of its two triangles a chunk for its 8 rays; a 3-step
-// xor-shuffle over the 8 lanes that share a ray column gives the tile's
-// winner, which the ray's own lane applies.
-//
-// Where it parts from the plain version: the tensor cores add a term's 16
-// products (and the accumulator) in their own order and rounding, so a
-// quantity may differ from the plain version's f32 sum in its last bits;
-// a winner can move only where that moves a sign test or a t comparison.
-//
-// What bounds it, from the code: for every relevant (block, tile) pair,
-// 8 warps x 8 chunks x 4 quantities x 4 ray groups x T mma of 4,096
-// operations, 128 T bf16 tensor-core operations a (ray, triangle) pair.
-// The work the function needs is less: 80 T operations a pair (the 10
-// non-zero features of the 4 quantities), on the block's active lanes
-// only, each any-hit lane up to its first occluding tile; ~13 FP32
-// operations a pair for the hit test, and ~20 a (ray, tile) for the
-// relevance slab tests; the bytes are the fragments (16 KB a tile and
-// table part), the boxes and the rays, once.  At the card's peaks (989
-// TFLOP/s bf16, 67 TFLOP/s FP32) the tensor work bounds bf16x6 and bf16x3
-// and the FP32 hit test bounds bf16; mma.sync reaches a part of the bf16
-// peak only.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+// relevance pass _block_relevance that fed it.
+#include "mesh_brute_tc.cuh"
 
-namespace {
-
-constexpr int TILE = 128;             // triangles a tile (mesh_brute.TILE)
-constexpr int CHUNK = 16;             // triangles an A fragment holds
-constexpr int NCHUNK = TILE / CHUNK;  // chunks a tile
-constexpr int BLOCK = 256;  // rays a block (mesh_brute.RELEVANCE_BLOCK)
-constexpr int MAX_WORDS = 256;        // relevance words a block: 8,192 tiles
-constexpr float EPS = 1e-5f;          // ops/math.py EPS
-constexpr unsigned FULL = 0xffffffffu;
-
-// the forms' terms (table part i, ray part j), in the reference's order
-template <int FORM> struct Form;
-template <> struct Form<0> {
-  static constexpr int T = 1, RAY_PARTS = 1;
-  static constexpr bool SPLIT = false;
-  __device__ static constexpr int ti(int) { return 0; }
-  __device__ static constexpr int tj(int) { return 0; }
-};
-template <> struct Form<1> {
-  static constexpr int T = 3, RAY_PARTS = 2;
-  static constexpr bool SPLIT = true;
-  __device__ static constexpr int ti(int t) { return t == 1 ? 1 : 0; }
-  __device__ static constexpr int tj(int t) { return t == 2 ? 1 : 0; }
-};
-template <> struct Form<2> {
-  static constexpr int T = 6, RAY_PARTS = 3;
-  static constexpr bool SPLIT = true;
-  __device__ static constexpr int ti(int t) {
-    return t == 1 || t == 4 ? 1 : t == 2 ? 2 : 0;
-  }
-  __device__ static constexpr int tj(int t) {
-    return t < 3 ? 0 : t < 5 ? 1 : 2;
-  }
-};
-
-// x cut into P bf16 parts, as mesh_brute.hi_lo_parts cuts it
-template <int P>
-__device__ __forceinline__ void split(float x, __nv_bfloat16 (&p)[P]) {
-  float rem = x;
-#pragma unroll
-  for (int k = 0; k < P; ++k) {
-    p[k] = __float2bfloat16_rn(rem);
-    rem = __fsub_rn(rem, __bfloat162float(p[k]));
-  }
+int mesh_brute_tc_launch_128(const TcArgs& a, int block, int form,
+                             cudaStream_t stream) {
+  return launch_tile<128>(a, block, form, stream);
 }
-
-// a control value as the split forms rebuild it: the parts summed in f32,
-// first to last
-template <int P>
-__device__ __forceinline__ float rebuilt(float x) {
-  __nv_bfloat16 p[P];
-  split<P>(x, p);
-  float s = __bfloat162float(p[0]);
-#pragma unroll
-  for (int k = 1; k < P; ++k) s = __fadd_rn(s, __bfloat162float(p[k]));
-  return s;
-}
-
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo)
-         | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-// d += A (16 x 16, row) . B (16 x 8, col), bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma(float (&d)[4], const uint4& a, uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ float safe_inv(float d) {
-  // the reference's slab guard: |d| < 1e-12 -> +-1e-12
-  if (fabsf(d) < 1e-12f) d = d >= 0.f ? 1e-12f : -1e-12f;
-  return __fdiv_rn(1.f, d);
-}
-
-template <int FORM>
-__global__ void __launch_bounds__(BLOCK)
-mesh_brute_tc_kernel(const uint4* __restrict__ frag, int nt,
-                     const float* __restrict__ clusters,
-                     const float* __restrict__ origin,
-                     const float* __restrict__ direction,
-                     const float* __restrict__ t_init,
-                     const uint8_t* __restrict__ active,
-                     const uint8_t* __restrict__ any_hit,
-                     const int32_t* __restrict__ exclude, long long n,
-                     float* __restrict__ out_t, int32_t* __restrict__ out_tri,
-                     int norel) {
-  using F = Form<FORM>;
-  __shared__ unsigned rel[MAX_WORDS];
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, g = lane >> 2, tig = lane & 3;
-  const long long i = (long long)blockIdx.x * BLOCK + tid;
-  const bool inb = i < n;
-
-  // this thread's own ray (a padded lane is the reference's zero pack)
-  float ox = 0.f, oy = 0.f, oz = 0.f, dx = 0.f, dy = 0.f, dz = 0.f;
-  float tin = 0.f, exf = 0.f;
-  bool act = false, anyh = false;
-  if (inb) {
-    ox = origin[3 * i + 0]; oy = origin[3 * i + 1]; oz = origin[3 * i + 2];
-    dx = direction[3 * i + 0]; dy = direction[3 * i + 1];
-    dz = direction[3 * i + 2];
-    tin = t_init[i];
-    act = active[i] != 0;
-    anyh = any_hit[i] != 0;
-    exf = (float)exclude[i];
-  }
-
-  // the block's relevance words (the reference's _block_relevance)
-  const int nwords = (nt + 31) >> 5;
-  for (int w = tid; w < nwords; w += BLOCK) rel[w] = norel ? FULL : 0u;
-  __syncthreads();
-  if (!norel && __any_sync(FULL, inb && act)) {
-    const float ix = safe_inv(dx), iy = safe_inv(dy), iz = safe_inv(dz);
-    for (int j = 0; j < nt; ++j) {
-      bool need = false;
-      if (inb && act) {
-        const float* cl = clusters + 8 * (long long)j;
-        float ent = EPS, ext = CUDART_INF_F;
-        float lo = __fmul_rn(__fsub_rn(cl[0], ox), ix);
-        float hi = __fmul_rn(__fsub_rn(cl[3], ox), ix);
-        ent = fmaxf(ent, fminf(lo, hi)); ext = fminf(ext, fmaxf(lo, hi));
-        lo = __fmul_rn(__fsub_rn(cl[1], oy), iy);
-        hi = __fmul_rn(__fsub_rn(cl[4], oy), iy);
-        ent = fmaxf(ent, fminf(lo, hi)); ext = fminf(ext, fmaxf(lo, hi));
-        lo = __fmul_rn(__fsub_rn(cl[2], oz), iz);
-        hi = __fmul_rn(__fsub_rn(cl[5], oz), iz);
-        ent = fmaxf(ent, fminf(lo, hi)); ext = fminf(ext, fmaxf(lo, hi));
-        need = ent <= fminf(ext, tin);
-      }
-      const unsigned b = __ballot_sync(FULL, need);
-      if (lane == 0 && b) atomicOr(&rel[j >> 5], 1u << (j & 31));
-    }
-  }
-  __syncthreads();  // the only other block barrier
-
-  // the control values as the form reads them
-  float tin_r = tin, ex_r = exf;
-  bool act_r = act, anyh_r = anyh;
-  if (F::SPLIT) {
-    tin_r = rebuilt<F::RAY_PARTS>(tin);
-    ex_r = rebuilt<F::RAY_PARTS>(exf);
-    act_r = rebuilt<F::RAY_PARTS>(act ? 1.f : 0.f) > 0.5f;
-    anyh_r = rebuilt<F::RAY_PARTS>(anyh ? 1.f : 0.f) > 0.5f;
-  }
-  // inactive lanes park at -inf: they can never record a hit.  So does a
-  // lane whose t_init is not finite in bf16 (inf, or past bf16's range) in
-  // form 0: the reference multiplies its control values by the table's
-  // zero rows, and 0 x inf makes every quantity of the lane NaN.  (The
-  // split forms' rebuilt t_init is NaN then, which no t beats.)
-  const bool nan_lane =
-      !F::SPLIT && !isfinite(__bfloat162float(__float2bfloat16_rn(tin)));
-  float best = act_r && !nan_lane ? tin_r : -CUDART_INF_F;
-  int best_i = -1;
-  bool live = inb && act_r && !nan_lane;
-
-  // B fragments: for ray group r (rays 8r..8r+7 of the warp) this lane
-  // holds features 2*tig, 2*tig+1, 2*tig+8, 2*tig+9 of ray 8r+g, each
-  // ray part j a register pair; and the excluded triangle of the 8 rays
-  // whose results it computes (ray 8r + 2*tig + c, slot 2r + c)
-  uint32_t bf[F::RAY_PARTS][4][2];
-  float ex_slot[8];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int src = 8 * r + g;
-    const float sox = __shfl_sync(FULL, ox, src);
-    const float soy = __shfl_sync(FULL, oy, src);
-    const float soz = __shfl_sync(FULL, oz, src);
-    const float sdx = __shfl_sync(FULL, dx, src);
-    const float sdy = __shfl_sync(FULL, dy, src);
-    const float sdz = __shfl_sync(FULL, dz, src);
-    const bool src_in = __shfl_sync(FULL, (int)inb, src) != 0;
-    // d x o, each product and difference rounded on its own
-    const float cx = __fsub_rn(__fmul_rn(sdy, soz), __fmul_rn(sdz, soy));
-    const float cy = __fsub_rn(__fmul_rn(sdz, sox), __fmul_rn(sdx, soz));
-    const float cz = __fsub_rn(__fmul_rn(sdx, soy), __fmul_rn(sdy, sox));
-    const float one = src_in ? 1.f : 0.f;
-    const float v0 = tig == 0 ? sox : tig == 1 ? soz : tig == 2 ? sdy : cx;
-    const float v1 = tig == 0 ? soy : tig == 1 ? sdx : tig == 2 ? sdz : cy;
-    const float v2 = tig == 0 ? cz : 0.f;
-    const float v3 = tig == 0 ? one : 0.f;
-    __nv_bfloat16 p0[F::RAY_PARTS], p1[F::RAY_PARTS], p2[F::RAY_PARTS],
-        p3[F::RAY_PARTS];
-    split<F::RAY_PARTS>(v0, p0);
-    split<F::RAY_PARTS>(v1, p1);
-    split<F::RAY_PARTS>(v2, p2);
-    split<F::RAY_PARTS>(v3, p3);
-#pragma unroll
-    for (int j = 0; j < F::RAY_PARTS; ++j) {
-      bf[j][r][0] = pack2(p0[j], p1[j]);
-      bf[j][r][1] = pack2(p2[j], p3[j]);
-    }
-#pragma unroll
-    for (int c = 0; c < 2; ++c)
-      ex_slot[2 * r + c] = __shfl_sync(FULL, ex_r, 8 * r + 2 * tig + c);
-  }
-  // where this lane's own ray's result sits after the reduction
-  const int own_src = (lane & 7) >> 1;
-  const int own_slot = (lane >> 3) * 2 + (lane & 1);
-
-  for (int j = 0; j < nt; ++j) {
-    if (!((rel[j >> 5] >> (j & 31)) & 1u)) continue;  // the block's bit
-    if (!__any_sync(FULL, live)) break;  // no lane of the warp can change
-    float rt[8];
-    int rc[8];
-#pragma unroll
-    for (int s = 0; s < 8; ++s) { rt[s] = CUDART_INF_F; rc[s] = TILE; }
-    const float base = (float)(j * TILE);
-#pragma unroll 1
-    for (int ch = 0; ch < NCHUNK; ++ch) {
-      float acc[4][4][4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q)
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[q][r][e] = 0.f;
-#pragma unroll
-      for (int t = 0; t < F::T; ++t) {
-        const uint4* fa =
-            frag + ((((long long)F::ti(t) * nt + j) * NCHUNK + ch) * 4) * 32
-            + lane;
-        uint4 a[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) a[q] = __ldg(fa + 32 * q);
-#pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            mma(acc[q][r], a[q], bf[F::tj(t)][r][0], bf[F::tj(t)][r][1]);
-      }
-      // the hit test of this lane's 16 (triangle, ray) pairs: accumulator
-      // e is triangle g (e < 2) or g + 8, ray 2*tig + (e & 1) of group r
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = ch * CHUNK + g + (e >= 2 ? 8 : 0);
-        const float cf = __fadd_rn((float)c, base);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int s = 2 * r + (e & 1);
-          const float den = acc[0][r][e], tden = acc[1][r][e];
-          const float uden = acc[2][r][e], vden = acc[3][r][e];
-          const float den2 = __fmul_rn(den, den);
-          const float m = fminf(
-              fminf(__fmul_rn(uden, den), __fmul_rn(vden, den)),
-              __fmul_rn(__fsub_rn(__fsub_rn(den, uden), vden), den));
-          const float td = __fmul_rn(tden, den);
-          if (m >= 0.f && td > __fmul_rn(EPS, den2) && cf != ex_slot[s]) {
-            const float t = __fdiv_rn(td, den2);
-            if (t < rt[s]) { rt[s] = t; rc[s] = c; }  // c grows: ties keep
-          }
-        }
-      }
-    }
-    // the lexicographic minimum of (t, c) over the 8 lanes of a ray column
-#pragma unroll
-    for (int s = 0; s < 8; ++s)
-#pragma unroll
-      for (int off = 4; off < 32; off <<= 1) {
-        const float ot = __shfl_xor_sync(FULL, rt[s], off);
-        const int oc = __shfl_xor_sync(FULL, rc[s], off);
-        if (ot < rt[s] || (ot == rt[s] && oc < rc[s])) {
-          rt[s] = ot;
-          rc[s] = oc;
-        }
-      }
-    float tmin = CUDART_INF_F;
-    int targ = TILE;
-#pragma unroll
-    for (int s = 0; s < 8; ++s) {
-      const float v = __shfl_sync(FULL, rt[s], own_src);
-      const int vc = __shfl_sync(FULL, rc[s], own_src);
-      if (s == own_slot) { tmin = v; targ = vc; }
-    }
-    // the across-tile rule; an any-hit lane ends at its first occluder
-    if (tmin < best) {
-      best = anyh_r ? -CUDART_INF_F : tmin;
-      best_i = j * TILE + targ;
-      if (anyh_r) live = false;
-    }
-  }
-
-  if (inb) {
-    out_t[i] = (best_i >= 0 && isfinite(best)) ? best : tin_r;
-    out_tri[i] = best_i;
-  }
-}
-
-}  // namespace
 
 extern "C" {
 
-int prt_mesh_brute_tc(const void* frag, int nt, const float* clusters,
-                      const float* origin, const float* direction,
-                      const float* t_init, const uint8_t* active,
-                      const uint8_t* any_hit, const int32_t* exclude,
-                      long long n, float* out_t, int32_t* out_tri, int form,
-                      int norel, void* stream) {
+// `tile`: the table's triangles a tile, `block`: the rays a relevance
+// block, each 128, 256 or 512; `form` 0 (bf16), 1 (bf16x3) or 2 (bf16x6).
+// Anything else is refused (cudaErrorInvalidValue) before a launch.
+int prt_mesh_brute_tc(const void* frag, int nt, int tile, int block,
+                      const float* clusters, const float* origin,
+                      const float* direction, const float* t_init,
+                      const uint8_t* active, const uint8_t* any_hit,
+                      const int32_t* exclude, long long n, float* out_t,
+                      int32_t* out_tri, int form, int norel, void* stream) {
   if (nt < 1 || nt > MAX_WORDS * 32) return (int)cudaErrorInvalidValue;
-  const long long blocks = (n + BLOCK - 1) / BLOCK;
-  const uint4* f = (const uint4*)frag;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (form) {
-    case 0:
-      mesh_brute_tc_kernel<0><<<(unsigned)blocks, BLOCK, 0, s>>>(
-          f, nt, clusters, origin, direction, t_init, active, any_hit,
-          exclude, n, out_t, out_tri, norel);
-      break;
-    case 1:
-      mesh_brute_tc_kernel<1><<<(unsigned)blocks, BLOCK, 0, s>>>(
-          f, nt, clusters, origin, direction, t_init, active, any_hit,
-          exclude, n, out_t, out_tri, norel);
-      break;
-    case 2:
-      mesh_brute_tc_kernel<2><<<(unsigned)blocks, BLOCK, 0, s>>>(
-          f, nt, clusters, origin, direction, t_init, active, any_hit,
-          exclude, n, out_t, out_tri, norel);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+  const TcArgs a{frag, nt, clusters, origin, direction, t_init, active,
+                 any_hit, exclude, n, out_t, out_tri, norel};
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (tile) {
+    case 128: return mesh_brute_tc_launch_128(a, block, form, s);
+    case 256: return mesh_brute_tc_launch_256(a, block, form, s);
+    case 512: return mesh_brute_tc_launch_512(a, block, form, s);
+    default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,0 +1,8 @@
+// The tensor-core kernel's instances for tiles of 256 triangles (every
+// form and relevance block): see mesh_brute_tc.cuh.
+#include "mesh_brute_tc.cuh"
+
+int mesh_brute_tc_launch_256(const TcArgs& a, int block, int form,
+                             cudaStream_t stream) {
+  return launch_tile<256>(a, block, form, stream);
+}

@@ -42,17 +42,17 @@ _c_int = ctypes.c_int
 _c_ll = ctypes.c_longlong
 _c_float = ctypes.c_float
 _SIGNATURES = {
-    "prt_mesh_brute": [_c_vp, _c_ll, _c_int, _c_vp, _c_vp, _c_vp, _c_vp,
-                       _c_vp, _c_vp, _c_vp, _c_ll, _c_vp, _c_vp, _c_vp,
-                       _c_int, _c_vp],
-    "prt_mesh_brute_tc": [_c_vp, _c_int, _c_vp, _c_vp, _c_vp, _c_vp, _c_vp,
-                          _c_vp, _c_vp, _c_ll, _c_vp, _c_vp, _c_int, _c_int,
-                          _c_vp],
+    "prt_mesh_brute": [_c_vp, _c_ll, _c_int, _c_int, _c_vp, _c_vp, _c_vp,
+                       _c_vp, _c_vp, _c_vp, _c_vp, _c_ll, _c_vp, _c_vp,
+                       _c_vp, _c_int, _c_vp],
+    "prt_mesh_brute_tc": [_c_vp, _c_int, _c_int, _c_int, _c_vp, _c_vp, _c_vp,
+                          _c_vp, _c_vp, _c_vp, _c_vp, _c_ll, _c_vp, _c_vp,
+                          _c_int, _c_int, _c_vp],
     "prt_tonemap": [_c_vp, _c_vp, _c_int, _c_int, _c_int, _c_int, _c_int,
                     _c_float, _c_int, _c_vp],
     "prt_block_scan": [_c_vp, _c_vp, _c_vp, _c_ll, _c_int, _c_vp],
-    "prt_matmul_only": [_c_vp, _c_int, _c_vp, _c_vp, _c_ll, _c_int, _c_ll,
-                        _c_int, _c_vp, _c_vp, _c_vp],
+    "prt_matmul_only": [_c_vp, _c_int, _c_vp, _c_vp, _c_ll, _c_int, _c_int,
+                        _c_ll, _c_int, _c_vp, _c_vp, _c_vp],
     "prt_passthrough": [_c_vp, _c_vp, _c_ll, _c_vp],
     "prt_bvh_walk": [_c_vp, _c_vp, _c_vp, _c_int, _c_vp, _c_vp, _c_vp, _c_vp,
                      _c_vp, _c_ll, _c_vp, _c_vp, _c_vp, _c_vp, _c_vp, _c_vp,

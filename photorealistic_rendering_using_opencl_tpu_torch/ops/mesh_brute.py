@@ -15,6 +15,17 @@ table (pre-scaled by 1/|n|), grouped in tiles of TILE triangles with one
 AABB ("cluster") per tile.  The hit test is a sign test on products with
 den; only a winning pair pays the division.
 
+Sizes.  ``PRT_MESH_TILE`` (TILE, triangles a tile, default 128) and
+``PRT_MESH_BLOCK`` (RELEVANCE_BLOCK, rays a relevance block, default 256)
+are read once, at import, as the reference reads its TILE and BLOCK.  The
+loader packs its tables at TILE; everything that takes a table reads the
+table's own tile from it (``table_tile``: columns over 4 x clusters), so
+tables of several tile sizes can live in one process.  The relevance block
+is a keyword of the functions that prune by blocks, RELEVANCE_BLOCK when
+not given.  The plain versions take any positive size; the kernels are
+built for the sizes of KERNEL_TILES and KERNEL_BLOCKS (the reference's
+round-5 sweep) and raise ``ValueError`` naming the switch for any other.
+
 Arithmetic forms.  The reference's TPU kernel has three: f32 operands at
 MATMUL_PRECISION, the stacked-K hi/lo split (each operand cut into bf16
 parts by ``hi_lo_parts``, the ``FORM_TERMS`` pairs of parts stacked along
@@ -78,7 +89,8 @@ import torch
 from photorealistic_rendering_using_opencl_tpu_torch.ops import _cuda
 from photorealistic_rendering_using_opencl_tpu_torch.ops.math import EPS
 
-TILE = 128  # triangles per tile (and per cluster AABB)
+# triangles per tile (and per cluster AABB) of the tables the loader packs
+TILE = int(os.environ.get("PRT_MESH_TILE", "128"))
 FEAT = 16  # ray feature width (10 used)
 # the reference's resident-table cap; above it the loader asks for the ray
 # sort (scene/loader.py: mesh_sort_rays)
@@ -88,7 +100,11 @@ BRUTE_MAX_TRIS = 32768
 BRUTE_STREAM_MAX_TRIS = 262144
 # rays a relevance block of the reference's TPU kernel (its BLOCK): the
 # tensor-core kernel and its plain version prune tiles by blocks of these
-RELEVANCE_BLOCK = 256
+RELEVANCE_BLOCK = int(os.environ.get("PRT_MESH_BLOCK", "256"))
+# the tiles K1, the tensor-core kernel and T1 are built for, and the
+# relevance blocks of the tensor-core kernel (csrc/*.cu instantiate each)
+KERNEL_TILES = (128, 256, 512)
+KERNEL_BLOCKS = (128, 256, 512)
 
 # the reference's PRT_MESH_PRECISION names, each with the tensor-core
 # kernel's form on the card (None: K1); see the module docstring
@@ -119,6 +135,29 @@ class BrutePack(NamedTuple):
     clusters: np.ndarray  # [NT, 8] per-tile AABB: bmin(3) bmax(3) pad(2)
     tri_verts: np.ndarray  # [Tpad,3,3] vertices, same (compact) order
     tri_normals: np.ndarray  # [Tpad,3,3] vertex normals, same order
+
+
+def table_tile(feat, clusters) -> int:
+    """The tile of a packed table: its 4 x tile columns a cluster."""
+    return feat.shape[1] // (4 * clusters.shape[0])
+
+
+def kernel_tile(tile: int) -> int:
+    """``tile`` when the kernels have an instance for it, else ValueError."""
+    if tile not in KERNEL_TILES:
+        raise ValueError(f"tile of {tile} triangles: the mesh kernels are "
+                         f"built for PRT_MESH_TILE in {KERNEL_TILES}")
+    return tile
+
+
+def kernel_block(block: int) -> int:
+    """``block`` when the tensor-core kernel has an instance for it, else
+    ValueError."""
+    if block not in KERNEL_BLOCKS:
+        raise ValueError(f"relevance block of {block} rays: the tensor-core "
+                         f"kernel is built for PRT_MESH_BLOCK in "
+                         f"{KERNEL_BLOCKS}")
+    return block
 
 
 def pack_brute(tri_verts: np.ndarray, tri_normals: np.ndarray,
@@ -211,11 +250,12 @@ def _ray_features(origin, direction):
 def _intersect_xla(feat, clusters, origin, direction, t_init, active,
                    exclude=None):
     """Closest hit for every lane (any-hit lanes included: the closest hit
-    subsumes occlusion), scanning every tile: strict ``<`` across tiles,
-    the lowest index on ties within one."""
+    subsumes occlusion), scanning every tile of the table's own size
+    (``table_tile``): strict ``<`` across tiles, the lowest index on ties
+    within one."""
     n = origin.shape[0]
-    c = TILE
-    nt = feat.shape[1] // (4 * c)
+    nt = clusters.shape[0]
+    c = table_tile(feat, clusters)
     f = _ray_features(origin, direction)
     tiles = feat.T.reshape(nt, 4 * c, FEAT).transpose(1, 2)
     t_init = torch.broadcast_to(torch.as_tensor(t_init, dtype=torch.float32,
@@ -305,7 +345,7 @@ def _form_operands(feat, pack, form):
 
 
 def intersect_reduced_plain(feat, clusters, origin, direction, t_init, active,
-                            any_hit, exclude, form, norel=False):
+                            any_hit, exclude, form, norel=False, block=None):
     """What the reference's TPU kernel computes in ``form`` ("bf16",
     "bf16x3" or "bf16x6"), in plain PyTorch: the plain version of the
     tensor-core kernel -> (t [N], tri [N] int32).
@@ -314,8 +354,9 @@ def intersect_reduced_plain(feat, clusters, origin, direction, t_init, active,
     tile's four quantities are one f32 product of the stacked parts, whose
     bf16 x bf16 products are exact, summed in f32 over the stacked dimension
     in order; the control values are the ones the kernel reads
-    (``_form_operands``).  Tiles are taken in table order and only for
-    blocks of RELEVANCE_BLOCK lanes whose relevance bit is set (all of them
+    (``_form_operands``).  Tiles (the table's own, ``table_tile``) are
+    taken in table order and only for blocks of ``block`` lanes
+    (RELEVANCE_BLOCK when None) whose relevance bit is set (all of them
     with ``norel``), every lane of such a block tested; a strictly smaller t
     wins across tiles, the lowest index within one; an inactive lane never
     records a hit, an any-hit lane stops after its first occluding tile
@@ -331,18 +372,19 @@ def intersect_reduced_plain(feat, clusters, origin, direction, t_init, active,
     a lane no hit itself."""
     n = origin.shape[0]
     dev = origin.device
-    c = TILE
+    c = table_tile(feat, clusters)
     nt = clusters.shape[0]
+    block = RELEVANCE_BLOCK if block is None else block
     t_init = _lane_tensor(t_init, n, torch.float32, dev, None)
     active = _lane_tensor(active, n, torch.bool, dev, True)
     any_hit = _lane_tensor(any_hit, n, torch.bool, dev, False)
     exclude = _lane_tensor(exclude, n, torch.int32, dev, -1)
     if norel:
-        words = torch.full((-(-n // RELEVANCE_BLOCK), -(-nt // 32)), -1,
+        words = torch.full((-(-n // block), -(-nt // 32)), -1,
                            dtype=torch.int32, device=dev)
     else:
         words = relevance_words(clusters, origin, direction, t_init, active,
-                                RELEVANCE_BLOCK)
+                                block)
     f, a, ctrl = _form_operands(feat, _ray_pack(origin, direction, t_init,
                                                 active, any_hit, exclude),
                                 form)
@@ -353,7 +395,7 @@ def intersect_reduced_plain(feat, clusters, origin, direction, t_init, active,
     best_t = torch.where(act, tinit, -torch.inf)
     best_i = torch.full((n,), -1, dtype=torch.int32, device=dev)
     rowf = torch.arange(c, dtype=torch.float32, device=dev)
-    block_of = torch.arange(n, device=dev) // RELEVANCE_BLOCK
+    block_of = torch.arange(n, device=dev) // block
     w = words.to(torch.int64) & 0xFFFFFFFF
     for j in range(nt):
         lanes = ((w[:, j // 32] >> (j % 32)) & 1).bool()[block_of]
@@ -388,7 +430,8 @@ class _MeshBruteKernel:
     triangles, (ray, tile) slab tests, and the (warp, tile) and (ray, tile)
     pairs of the first two run in per-thread mode); the render path passes
     none.  ``norel`` (``PRT_MESH_NOREL``) skips the slab tests: every live
-    lane tests every tile."""
+    lane tests every tile.  The tile is the table's (``table_tile``), one of
+    KERNEL_TILES."""
 
     def __init__(self):
         self.launches = 0
@@ -398,10 +441,12 @@ class _MeshBruteKernel:
         dev = origin.device
         n = origin.shape[0]
         nt = clusters.shape[0]
-        if feat.shape[1] != 4 * TILE * nt:
-            raise ValueError(f"feat {tuple(feat.shape)} does not match "
-                             f"{nt} clusters of {TILE} triangles")
-        _cuda.require(feat, "feat", torch.float32, (FEAT, 4 * TILE * nt), dev)
+        tile = table_tile(feat, clusters)
+        if feat.shape[1] != 4 * tile * nt:
+            raise ValueError(f"feat {tuple(feat.shape)} is not {nt} whole "
+                             "tiles")
+        kernel_tile(tile)
+        _cuda.require(feat, "feat", torch.float32, (FEAT, 4 * tile * nt), dev)
         _cuda.require(clusters, "clusters", torch.float32, (nt, 8), dev)
         _cuda.require(origin, "origin", torch.float32, (n, 3), dev)
         _cuda.require(direction, "direction", torch.float32, (n, 3), dev)
@@ -419,7 +464,7 @@ class _MeshBruteKernel:
         lib = _cuda.LIBRARY.get()
         with _cuda.on_device(origin):
             code = lib.prt_mesh_brute(
-                feat.data_ptr(), feat.stride(0), nt, clusters.data_ptr(),
+                feat.data_ptr(), feat.stride(0), nt, tile, clusters.data_ptr(),
                 origin.data_ptr(), direction.data_ptr(), t_init.data_ptr(),
                 active.data_ptr(), any_hit.data_ptr(), exclude.data_ptr(), n,
                 out_t.data_ptr(), out_tri.data_ptr(),
@@ -438,7 +483,8 @@ mesh_brute_kernel = _MeshBruteKernel()
 # ---------------------------------------------------------------------------
 
 TC_CHUNK = 16  # triangles an mma's A fragment holds (its 16 rows)
-# the kernel keeps a block's relevance bits in shared memory (256 words)
+# the kernel keeps a block's relevance bits in shared memory (256 words),
+# whatever the tile's size
 TC_MAX_TILES = 8192
 
 
@@ -460,57 +506,62 @@ def _fragment_index():
     return rows, cols
 
 
-def tc_fragments(feat, n_parts):
+def tc_fragments(feat, n_parts, tile=None):
     """The coefficient table cut into ``n_parts`` bf16 parts
     (``hi_lo_parts``; one part of a bf16 table is the table) and laid out
-    as the tensor-core kernel loads its A fragments -> [n_parts, nt, 8, 4,
-    32, 8] bf16: for each part, tile, chunk of TC_CHUNK triangles and
-    quantity q (den, t*den, u*den, v*den), the 16 bytes lane l holds of
-    the 16 x 16 fragment (row: the chunk's triangle, column: the ray
-    feature)."""
+    as the tensor-core kernel loads its A fragments -> [n_parts, nt,
+    tile / 16, 4, 32, 8] bf16: for each part, tile (of ``tile`` triangles,
+    TILE when None), chunk of TC_CHUNK triangles and quantity q (den,
+    t*den, u*den, v*den), the 16 bytes lane l holds of the 16 x 16 fragment
+    (row: the chunk's triangle, column: the ray feature)."""
+    tile = TILE if tile is None else tile
     k, cols4 = feat.shape
-    nt = cols4 // (4 * TILE)
+    nt = cols4 // (4 * tile)
     src = feat if feat.dtype == torch.bfloat16 else feat.float()
     parts = torch.stack(hi_lo_parts(src, n_parts))  # [P, 16, 4*Tpad]
-    a = parts.reshape(n_parts, k, nt, 4, TILE // TC_CHUNK, TC_CHUNK)
+    a = parts.reshape(n_parts, k, nt, 4, tile // TC_CHUNK, TC_CHUNK)
     a = a.permute(0, 2, 4, 3, 5, 1)  # [P, nt, chunk, q, row, feature]
     rows, cols = _fragment_index()
     return a[..., rows.to(feat.device), cols.to(feat.device)].contiguous()
 
 
-# each table's fragments, made once per table and number of parts (the
-# reference hoists its table split out of the render loop the same way):
-# id(table) -> (a weak reference to it, its _version, {parts: fragments});
-# an entry leaves with its table, and an in-place change of the table
-# makes its fragments anew
+# each table's fragments, made once per table, number of parts and tile
+# (the reference hoists its table split out of the render loop the same
+# way): id(table) -> (a weak reference to it, its _version, {(parts, tile):
+# fragments}); an entry leaves with its table, and an in-place change of
+# the table makes its fragments anew
 _FRAGMENTS = {}
 
 
-def form_fragments(feat, form):
-    """``tc_fragments`` of ``feat`` for ``form``, cached per table."""
-    n_parts = table_parts(form)
+def form_fragments(feat, form, tile=None):
+    """``tc_fragments`` of ``feat`` for ``form`` at ``tile`` (TILE when
+    None; ``table_tile`` of the table and its clusters), cached per
+    table."""
+    key_parts = (table_parts(form), TILE if tile is None else tile)
     key = id(feat)
     entry = _FRAGMENTS.get(key)
     if entry is None or entry[0]() is not feat or entry[1] != feat._version:
         entry = (weakref.ref(feat), feat._version, {})
         _FRAGMENTS[key] = entry
         weakref.finalize(feat, _FRAGMENTS.pop, key, None)
-    if n_parts not in entry[2]:
-        entry[2][n_parts] = tc_fragments(feat, n_parts)
-    return entry[2][n_parts]
+    if key_parts not in entry[2]:
+        entry[2][key_parts] = tc_fragments(feat, *key_parts)
+    return entry[2][key_parts]
 
 
 class _MeshBruteTcKernel:
     """Wrapper of ``prt_mesh_brute_tc`` (csrc/mesh_brute_tc.cu), the
     reduced-precision forms on the tensor cores; its plain version is
     ``intersect_reduced_plain``.  ``launches`` counts kernel launches and
-    nothing else.  ``frag`` is ``form_fragments(feat, form)``."""
+    nothing else.  ``frag`` is ``form_fragments(feat, form, tile)``, whose
+    shape gives the tile (one of KERNEL_TILES); ``block`` is the relevance
+    block (RELEVANCE_BLOCK when None), one of KERNEL_BLOCKS."""
 
     def __init__(self):
         self.launches = 0
 
     def __call__(self, frag, clusters, origin, direction, t_init, active,
-                 any_hit, exclude, form, norel=False):
+                 any_hit, exclude, form, norel=False, block=None):
         dev = origin.device
         n = origin.shape[0]
         nt = clusters.shape[0]
@@ -520,8 +571,11 @@ class _MeshBruteTcKernel:
         if nt > TC_MAX_TILES:
             raise ValueError(f"{nt} tiles: the kernel takes at most "
                              f"{TC_MAX_TILES}")
+        tile = frag.shape[2] * TC_CHUNK if frag.dim() == 6 else 0
         _cuda.require(frag, "frag", torch.bfloat16,
-                      (n_parts, nt, TILE // TC_CHUNK, 4, 32, 8), dev)
+                      (n_parts, nt, tile // TC_CHUNK, 4, 32, 8), dev)
+        kernel_tile(tile)
+        block = kernel_block(RELEVANCE_BLOCK if block is None else block)
         if frag.data_ptr() % 16:
             raise ValueError("frag: the kernel loads it in 16-byte pieces; "
                              "its data must start on a 16-byte boundary")
@@ -539,7 +593,8 @@ class _MeshBruteTcKernel:
         lib = _cuda.LIBRARY.get()
         with _cuda.on_device(origin):
             code = lib.prt_mesh_brute_tc(
-                frag.data_ptr(), nt, clusters.data_ptr(), origin.data_ptr(),
+                frag.data_ptr(), nt, tile, block, clusters.data_ptr(),
+                origin.data_ptr(),
                 direction.data_ptr(), t_init.data_ptr(), active.data_ptr(),
                 any_hit.data_ptr(), exclude.data_ptr(), n, out_t.data_ptr(),
                 out_tri.data_ptr(), _FORM_CODES[form], int(norel),
@@ -620,9 +675,9 @@ def _launch(feat, clusters, origin, direction, t_init, active, any_hit,
     if form is None:
         return mesh_brute_kernel(feat.contiguous(), clusters.contiguous(),
                                  *lanes, norel=norel)
-    return mesh_brute_tc_kernel(form_fragments(feat, form),
-                                clusters.contiguous(), *lanes, form,
-                                norel=norel)
+    return mesh_brute_tc_kernel(
+        form_fragments(feat, form, table_tile(feat, clusters)),
+        clusters.contiguous(), *lanes, form, norel=norel)
 
 
 # ---------------------------------------------------------------------------
@@ -720,43 +775,47 @@ def matmul_only_pack(origin, direction, t_init):
     return p
 
 
-def matmul_only_plain(words, pack, feat, block):
+def matmul_only_plain(words, pack, feat, block, tile=None):
     """T1's plain version: for each ray, the masked per-tile sum over the
-    tiles whose bit is set for its block of the column sums of
-    ``A_tile^T . p`` -> (t [N] f32, i [N] int32 zeros)."""
+    tiles (of ``tile`` triangles, TILE when None) whose bit is set for its
+    block of the column sums of ``A_tile^T . p`` -> (t [N] f32, i [N]
+    int32 zeros)."""
+    tile = TILE if tile is None else tile
     n = pack.shape[1]
-    nt = feat.shape[1] // (4 * TILE)
+    nt = feat.shape[1] // (4 * tile)
     w = words.reshape(-1, -(-nt // 32)).to(torch.int64) & 0xFFFFFFFF
     ray_block = torch.arange(n, device=pack.device) // block
     pt = pack.T
     t = torch.zeros((n,), dtype=torch.float32, device=pack.device)
     for j in range(nt):
         bit = ((w[:, j // 32] >> (j % 32)) & 1).bool()[ray_block]
-        s = torch.matmul(pt, feat[:, j * 4 * TILE:(j + 1) * 4 * TILE]).sum(1)
+        s = torch.matmul(pt, feat[:, j * 4 * tile:(j + 1) * 4 * tile]).sum(1)
         t = torch.where(bit, t + s, t)
     return t, torch.zeros((n,), dtype=torch.int32, device=pack.device)
 
 
 class _MatmulOnlyKernel:
     """Wrapper of ``prt_matmul_only`` (csrc/matmul_only.cu).  ``launches``
-    counts kernel launches and nothing else."""
+    counts kernel launches and nothing else.  ``tile`` (TILE when None) is
+    the table's, one of KERNEL_TILES."""
 
     def __init__(self):
         self.launches = 0
 
-    def __call__(self, words, pack, feat, block):
+    def __call__(self, words, pack, feat, block, tile=None):
         dev = pack.device
         n = pack.shape[1]
-        nt = feat.shape[1] // (4 * TILE)
+        tile = kernel_tile(TILE if tile is None else tile)
+        nt = feat.shape[1] // (4 * tile)
         nwords = -(-nt // 32)
         if block not in (128, 256):
             raise ValueError(f"block {block}: the kernel takes 128 or 256")
-        if feat.shape[1] != 4 * TILE * nt:
+        if feat.shape[1] != 4 * tile * nt:
             raise ValueError(f"feat {tuple(feat.shape)} is not whole tiles")
         _cuda.require(words, "words", torch.int32, (-(-n // block), nwords),
                       dev)
         _cuda.require(pack, "pack", torch.float32, (FEAT, n), dev)
-        _cuda.require(feat, "feat", torch.float32, (FEAT, 4 * TILE * nt), dev)
+        _cuda.require(feat, "feat", torch.float32, (FEAT, 4 * tile * nt), dev)
         if feat.data_ptr() % 16:
             raise ValueError("feat: the kernel copies it in 16-byte pieces; "
                              "its data must start on a 16-byte boundary")
@@ -768,7 +827,7 @@ class _MatmulOnlyKernel:
         with _cuda.on_device(pack):
             code = lib.prt_matmul_only(
                 words.data_ptr(), nwords, pack.data_ptr(), feat.data_ptr(),
-                feat.stride(0), nt, n, block, out_t.data_ptr(),
+                feat.stride(0), nt, tile, n, block, out_t.data_ptr(),
                 out_i.data_ptr(), _cuda.stream_handle(pack))
         _cuda.check(code, "prt_matmul_only")
         self.launches += 1
@@ -778,13 +837,14 @@ class _MatmulOnlyKernel:
 matmul_only_kernel = _MatmulOnlyKernel()
 
 
-def matmul_only(words, pack, feat, block):
+def matmul_only(words, pack, feat, block, tile=None):
     """T1 -> (t [N], i [N] zeros): ``matmul_only_plain`` for CPU tensors,
     the kernel for CUDA tensors (no fallback).  ``words`` from
-    ``relevance_words`` at the same ``block``."""
+    ``relevance_words`` at the same ``block``; ``tile`` the table's (TILE
+    when None)."""
     if pack.device.type == "cpu":
-        return matmul_only_plain(words, pack, feat, block)
+        return matmul_only_plain(words, pack, feat, block, tile)
     if pack.device.type != "cuda":
         raise ValueError(f"matmul_only: unsupported device {pack.device}")
     return matmul_only_kernel(words.contiguous(), pack.contiguous(),
-                              feat.contiguous(), block)
+                              feat.contiguous(), block, tile)

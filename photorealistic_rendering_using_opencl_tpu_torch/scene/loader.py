@@ -190,9 +190,11 @@ def build_scene(doc: dict, models_dir: str | None = None,
         packed = bvh_build.pack_for_device(bvh, tri_v, tri_n)
         # K1 streams at most BRUTE_STREAM_MAX_TRIS: past that only the walk
         # carries the mesh, and its brute tables stay empty.  BVH triangle
-        # order makes consecutive tiles spatially compact
+        # order makes consecutive tiles spatially compact; the tiles are
+        # PRT_MESH_TILE's (mesh_brute.TILE)
         if n_tris <= mesh_brute.BRUTE_STREAM_MAX_TRIS:
-            brute = mesh_brute.pack_brute(tri_v[bvh.order], tri_n[bvh.order])
+            brute = mesh_brute.pack_brute(tri_v[bvh.order], tri_n[bvh.order],
+                                          tile=mesh_brute.TILE)
 
     color = np.ones((nk, 3), np.float32)
     eta = np.tile(np.asarray(AU_ETA, np.float32), (nk, 1))
@@ -311,8 +313,8 @@ def build_scene(doc: dict, models_dir: str | None = None,
         has_env_map=env_map is not None,
         mesh_accel=_pick_mesh_accel(n_tris, device),
         # the reference's rule: sort rays for K1 above BRUTE_MAX_TRIS
-        # triangles, a multiple of TILE, so the padded count K1 sees gives
-        # the same answer (ROADMAP F3)
+        # triangles, a multiple of every tile K1 takes (128, 256, 512), so
+        # the padded count K1 sees gives the same answer (ROADMAP F3)
         mesh_sort_rays=n_tris > mesh_brute.BRUTE_MAX_TRIS,
     )
 

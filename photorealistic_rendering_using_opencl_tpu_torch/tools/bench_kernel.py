@@ -5,7 +5,9 @@ ablation T1, and the relevance pass that feeds T1.
         [--rays 262144] [--block 128] [--reps 20]
 
 Port of ``tools/bench_kernel.py``.  On the cornell_hi tables (81,920
-triangles in 640 tiles; cornell.json's teapot is not in the repo) and
+triangles in 640 tiles of 128, or in tiles of PRT_MESH_TILE's size, which
+the loader packs and the legs read from the tables, as the reference's
+tool reads its TILE; cornell.json's teapot is not in the repo) and
 ``--rays`` closest-hit rays from around the mesh, it times, with CUDA
 events around ``--reps`` back-to-back launches inside one call:
 
@@ -92,6 +94,7 @@ def run(n: int = RAYS, block: int = 128, reps: int = 20, seed: int = 0,
     # the f32 table (a bf16 one, under PRT_MESH_DTYPE=bf16, held in f32;
     # its own leg is bf16_table_leg)
     feat, clusters = scene.bf_feat.float(), scene.bf_clusters
+    tile = mesh_brute.table_tile(feat, clusters)
     o, d, t_init = rays_around_mesh(clusters, n, seed, dev)
     active = torch.ones((n,), dtype=torch.bool, device=dev)
     any_hit = torch.zeros((n,), dtype=torch.bool, device=dev)
@@ -109,11 +112,11 @@ def run(n: int = RAYS, block: int = 128, reps: int = 20, seed: int = 0,
     pack = mesh_brute.matmul_only_pack(o, d, t_init)
 
     def t1():
-        return mesh_brute.matmul_only(words, pack, feat, block)
+        return mesh_brute.matmul_only(words, pack, feat, block, tile)
 
     out = dict(rays=n, block=block, reps=reps,
                triangles=feat.shape[1] // 4,
-               tiles=clusters.shape[0],
+               tiles=clusters.shape[0], tile=tile,
                block_tiles=int(block_tile_pairs(words)),
                k1_ms=cuda_ms(k1, reps), t1_ms=cuda_ms(t1, reps),
                relevance_ms=cuda_ms(relevance, reps),
@@ -196,7 +199,8 @@ def main(argv=None) -> int:
         return 1
     r = run(args.rays, args.block, args.reps, args.seed)
     print(f"{r['device']}: {r['rays']} rays, {r['triangles']} triangles in "
-          f"{r['tiles']} tiles, T1 block {r['block']}", flush=True)
+          f"{r['tiles']} tiles of {r['tile']}, T1 block {r['block']}",
+          flush=True)
     print(f"  K1 full kernel        {r['k1_ms']:9.3f} ms", flush=True)
     print(f"  T1 compute only       {r['t1_ms']:9.3f} ms ({r['block_tiles']} "
           f"(block, tile) pairs, {r['ray_tiles']} (ray, tile) pairs)",

@@ -45,10 +45,10 @@ def cuda(monkeypatch):
     return torch.device("cuda")
 
 
-def _tables(dev):
+def _tables(dev, tile=mesh_brute.TILE):
     tv, tn = make_icosphere(subdiv=3, radius=0.8, center=(0.1, -0.2, 0.3))
     order = build_bvh(tv).order
-    bp = mesh_brute.pack_brute(tv[order], tn[order])
+    bp = mesh_brute.pack_brute(tv[order], tn[order], tile=tile)
     return bp, [torch.from_numpy(x).to(dev) for x in bp[:3]]
 
 
@@ -1333,3 +1333,119 @@ def test_tc_wrapper_validates_arguments(cuda):
         mesh_brute.mesh_brute_tc_kernel(frag, clusters, *lanes, "bf16x6")
     with pytest.raises(ValueError, match="form"):
         mesh_brute.mesh_brute_tc_kernel(frag, clusters, *lanes, "bf16x2")
+
+
+# ---------------------------------------------------------------------------
+# PRT_MESH_TILE and PRT_MESH_BLOCK: the kernels' other sizes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pop", ["random", "camera", "surface"])
+@pytest.mark.parametrize("tile", [256, 512])
+def test_k1_at_tile_matches_twin(cuda, tile, pop):
+    """K1 on a table of 256- or 512-triangle tiles (the 1,280-triangle
+    icosphere: 5 tiles, or 2.5 padded to 3) against the twin on that
+    table, one launch; the closest lanes' (t, tri) bitwise K1's on the
+    128-triangle table."""
+    bp, (feat, clusters, _) = _tables(cuda, tile)
+    assert mesh_brute.table_tile(feat, clusters) == tile
+    lanes = _batch(pop, bp, cuda)
+    before = mesh_brute.mesh_brute_kernel.launches
+    t, tri = mesh_brute.mesh_intersect(feat, clusters, *lanes[:3],
+                                       active=lanes[3], any_hit=lanes[4],
+                                       exclude=lanes[5])
+    assert mesh_brute.mesh_brute_kernel.launches == before + 1
+    _assert_like_twin(feat, clusters, *lanes, t, tri)
+    _, (f128, c128, _) = _tables(cuda, 128)
+    t0, tri0 = mesh_brute.mesh_intersect(f128, c128, *lanes[:3],
+                                         active=lanes[3], any_hit=lanes[4],
+                                         exclude=lanes[5])
+    closest = lanes[3] & ~lanes[4]
+    assert torch.equal(t[closest], t0[closest])
+    assert torch.equal(tri[closest], tri0[closest])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ["default", "bf16x3", "bf16x6"])
+@pytest.mark.parametrize("tile,block", [(256, 256), (128, 128), (128, 512),
+                                        (512, 512)])
+def test_tc_kernel_at_sizes_matches_plain(cuda, monkeypatch, tile, block,
+                                          label):
+    """The tensor-core kernel through ``mesh_intersect`` with
+    RELEVANCE_BLOCK (PRT_MESH_BLOCK) set to ``block``, on cornell_hi's
+    tables packed at ``tile``, against ``intersect_reduced_plain`` at the
+    same sizes on phase 3's random population: test_tc_kernel_matches_plain's
+    limits, one launch."""
+    cs = _chip_smoke()
+    monkeypatch.setattr(mesh_brute, "_PRECISION_NAME", label)
+    monkeypatch.setattr(mesh_brute, "RELEVANCE_BLOCK", block)
+    scene, b = _cornell_hi_population(cuda, "random")
+    feat, clusters = cs.tables_at(scene, tile)[:2]
+    form = mesh_brute.reduced_form(feat)
+    lanes = _tc_lanes(b)
+    tc = mesh_brute.mesh_brute_tc_kernel.launches
+    t, tri = mesh_brute.mesh_intersect(
+        feat, clusters, *lanes[:3], active=lanes[3], any_hit=lanes[4],
+        exclude=lanes[5])
+    assert mesh_brute.mesh_brute_tc_kernel.launches == tc + 1
+    tp, trip = mesh_brute.intersect_reduced_plain(feat, clusters, *lanes,
+                                                  form, block=block)
+    act, anyh = b["active"], b["any_hit"]
+    closest, anyhit = act & ~anyh, act & anyh
+    assert int(((tri != trip) & closest).sum()) <= 1e-5 * int(closest.sum())
+    assert int(((tri >= 0) != (trip >= 0))[anyhit].sum()) <= \
+        1e-5 * int(anyhit.sum())
+    assert cs.tc_dt(t, tp, closest & (tri == trip) & (tri >= 0))[1] <= \
+        cs.TC_DT_REL
+    assert torch.equal(t[~closest], tp[~closest])
+    assert torch.equal(tri[~act], trip[~act])
+    assert int((trip[closest] >= 0).sum()) > 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", [128, 256])
+@pytest.mark.parametrize("tile", [256, 512])
+def test_t1_at_tile_matches_plain(cuda, tile, block):
+    """T1 on a table of ``tile``-triangle tiles against its plain version
+    at the same tile (test_t1_matches_plain's bound), one launch."""
+    bp, (feat, clusters, _) = _tables(cuda, tile)
+    o, d, t_init, act, _, _ = _batch("random", bp, cuda)
+    words = mesh_brute.relevance_words(clusters, o, d, t_init, act, block)
+    pack = mesh_brute.matmul_only_pack(o, d, t_init)
+    before = mesh_brute.matmul_only_kernel.launches
+    t, i = mesh_brute.matmul_only(words, pack, feat, block, tile)
+    assert mesh_brute.matmul_only_kernel.launches == before + 1
+    want, _ = mesh_brute.matmul_only_plain(words, pack, feat, block, tile)
+    scale, _ = mesh_brute.matmul_only_plain(words, pack.abs(), feat.abs(),
+                                            block, tile)
+    assert not i.any() and (scale > 0).any()
+    assert float(((t - want).abs() / scale.clamp(min=1e-30)).max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_unbuilt_sizes_raise_on_card(cuda, monkeypatch):
+    """A tile or block with no kernel instance raises ValueError naming
+    its switch, on the card, with no launch and no fallback."""
+    bp, (feat, clusters, _) = _tables(cuda, 64)
+    lanes = _batch("camera", bp, cuda)
+    counts = (mesh_brute.mesh_brute_kernel.launches,
+              mesh_brute.mesh_brute_tc_kernel.launches,
+              mesh_brute.matmul_only_kernel.launches)
+    for name in ("highest", "bf16x6"):
+        monkeypatch.setattr(mesh_brute, "_PRECISION_NAME", name)
+        with pytest.raises(ValueError, match="PRT_MESH_TILE"):
+            mesh_brute.mesh_intersect(feat, clusters, *lanes[:3],
+                                      active=lanes[3], any_hit=lanes[4],
+                                      exclude=lanes[5])
+    words = mesh_brute.relevance_words(clusters, *lanes[:4], 128)
+    pack = mesh_brute.matmul_only_pack(*lanes[:3])
+    with pytest.raises(ValueError, match="PRT_MESH_TILE"):
+        mesh_brute.matmul_only(words, pack, feat, 128, 64)
+    _, (f128, c128, _) = _tables(cuda, 128)
+    monkeypatch.setattr(mesh_brute, "RELEVANCE_BLOCK", 1024)
+    with pytest.raises(ValueError, match="PRT_MESH_BLOCK"):
+        mesh_brute.mesh_intersect(f128, c128, *lanes[:3], active=lanes[3],
+                                  any_hit=lanes[4], exclude=lanes[5])
+    assert counts == (mesh_brute.mesh_brute_kernel.launches,
+                      mesh_brute.mesh_brute_tc_kernel.launches,
+                      mesh_brute.matmul_only_kernel.launches)

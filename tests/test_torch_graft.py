@@ -6,6 +6,12 @@ through their ``main`` on the CPU at tiny sizes: each prints the reference
 tool's names as JSON lines, and each exits 1 when the card it defaults to
 is absent.
 
+Both hooks load their scene with the same BVH builder (``same_bvh_build``):
+the native and the Python builders order the triangles differently, and a
+test process can be without the JAX package's native library (its build is
+shared by every process that builds it at once, and a process that loses
+that race keeps none).
+
 The hook's radiance is held to the jitted JAX fn at the render-parity
 bound of the 32-bounce budget, rtol = atol = 5e-4 (tests/test_torch_render.py:
 ulp differences between the frameworks' transcendental functions grow
@@ -22,8 +28,10 @@ import numpy as np
 import pytest
 import torch
 
+from photorealistic_rendering_using_opencl_tpu.runtime import native as j_native
 from photorealistic_rendering_using_opencl_tpu_torch import graft
 from photorealistic_rendering_using_opencl_tpu_torch.parallel import render
+from photorealistic_rendering_using_opencl_tpu_torch.runtime import native as p_native
 from photorealistic_rendering_using_opencl_tpu_torch.tools import (
     bisect_bounce, bounce_parts, bounces, bwd_anatomy, profile_floor,
     scaling_bench, spmd_audit, trace_bounce,
@@ -42,6 +50,21 @@ TOOLS = {"bounces": bounces, "bounce_parts": bounce_parts,
 CPU_LINE_KEYS = {"device", "nvidia_smi", "timed_by"}
 
 
+def same_bvh_build(monkeypatch):
+    """Both packages build BVHs the same way for the rest of the test:
+    natively when both native libraries load in this process, else both
+    in Python (PRT_NO_NATIVE, which each package reads at every call)."""
+    if j_native.get_lib() is None or p_native.get_lib() is None:
+        monkeypatch.setenv("PRT_NO_NATIVE", "1")
+
+
+def lose_jax_library(monkeypatch):
+    """The JAX package's native library made unavailable in this process,
+    as a process that lost its build race is left."""
+    monkeypatch.setattr(j_native, "_lib_tried", True)
+    monkeypatch.setattr(j_native, "_lib", None)
+
+
 def _jax_entry():
     spec = importlib.util.spec_from_file_location(
         "graft_entry_jax", os.path.join(REPO, "__graft_entry__.py"))
@@ -51,6 +74,20 @@ def _jax_entry():
 
 
 def test_entry_matches_jax_entry(monkeypatch):
+    _entry_matches(monkeypatch)
+
+
+def test_entry_matches_jax_entry_with_the_jax_library_lost(monkeypatch):
+    """The same with the JAX package's native library made unavailable in
+    this process (a lost build race): both hooks build in Python."""
+    lose_jax_library(monkeypatch)
+    assert j_native.get_lib() is None
+    _entry_matches(monkeypatch)
+    assert os.environ.get("PRT_NO_NATIVE") == "1"
+
+
+def _entry_matches(monkeypatch):
+    same_bvh_build(monkeypatch)
     monkeypatch.chdir(REPO)  # the JAX hook loads scenes/cornell.json
     j_fn, (j_scene, j_cam) = _jax_entry()
     want = np.asarray(jax.jit(j_fn)(j_scene, j_cam))

@@ -8,6 +8,12 @@ the JAX package's.  The kernel itself runs in tests/test_torch_cuda.py.
 
 Winners must be equal; a lane may part only at a tie the test shows (both
 candidates' scores within 2 float32 ulp), at most 1e-4 of a population.
+
+A test that loads a scene in both packages makes both build its BVH the
+same way (``same_bvh_build``): the native and the Python builders order
+the triangles differently, and a test process can be without the JAX
+package's native library (its build is shared by every process that
+builds it at once, and a process that loses that race keeps none).
 """
 import contextlib
 import dataclasses
@@ -23,12 +29,14 @@ import torch
 
 from photorealistic_rendering_using_opencl_tpu.ops import intersect as j_isect
 from photorealistic_rendering_using_opencl_tpu.ops import mesh_brute as j_mb
+from photorealistic_rendering_using_opencl_tpu.runtime import native as j_native
 from photorealistic_rendering_using_opencl_tpu.scene import bvh_build as j_bvh
 from photorealistic_rendering_using_opencl_tpu.scene import loader as j_loader
 from photorealistic_rendering_using_opencl_tpu.scene.obj import make_icosphere
 from photorealistic_rendering_using_opencl_tpu_torch.ops import (
     _cuda, intersect, mesh_brute,
 )
+from photorealistic_rendering_using_opencl_tpu_torch.runtime import native as p_native
 from photorealistic_rendering_using_opencl_tpu_torch.scene import loader
 
 torch.set_num_threads(2)
@@ -37,6 +45,21 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N = 700  # two whole relevance blocks of 256 rays and a padded tail
 PAD_SLOTS = 80640  # degenerate slots before the mesh: indices to 81,919
 TIE_SHARE = 1e-4
+
+
+def same_bvh_build(monkeypatch):
+    """Both packages build BVHs the same way for the rest of the test:
+    natively when both native libraries load in this process, else both
+    in Python (PRT_NO_NATIVE, which each package reads at every call)."""
+    if j_native.get_lib() is None or p_native.get_lib() is None:
+        monkeypatch.setenv("PRT_NO_NATIVE", "1")
+
+
+def lose_jax_library(monkeypatch):
+    """The JAX package's native library made unavailable in this process,
+    as a process that lost its build race is left."""
+    monkeypatch.setattr(j_native, "_lib_tried", True)
+    monkeypatch.setattr(j_native, "_lib", None)
 
 
 def _pack(pad=0):
@@ -115,14 +138,14 @@ def _scores(feat, bp, lanes, lane, tris, form):
     from the plain version run on that lane alone with every other
     triangle's coefficients zeroed."""
     out = []
+    size = mesh_brute.table_tile(feat, bp.clusters)
     for tri in tris:
         if tri < 0:
             out.append(np.inf)
             continue
         one = torch.zeros_like(feat)
-        tile, c = divmod(int(tri), mesh_brute.TILE)
-        cols = [tile * 4 * mesh_brute.TILE + q * mesh_brute.TILE + c
-                for q in range(4)]
+        tile, c = divmod(int(tri), size)
+        cols = [tile * 4 * size + q * size + c for q in range(4)]
         one[:, cols] = feat[:, cols]
         lane_in = [x[lane:lane + 1] for x in lanes]
         lane_in[2] = np.full(1, 3e38, np.float32)  # no t_init cap
@@ -451,6 +474,11 @@ def test_fragments_are_made_once_per_table(tables):
 def test_mesh_dtype_switch_loads_a_bf16_table(monkeypatch):
     """PRT_MESH_DTYPE=bf16, read at each load: both packages' coefficient
     tables bf16 and bitwise equal; unset, float32."""
+    _mesh_dtype_switch(monkeypatch)
+
+
+def _mesh_dtype_switch(monkeypatch):
+    same_bvh_build(monkeypatch)
     mesh = make_icosphere(subdiv=2, radius=0.6, center=(0.0, -1.0, 0.0))
     for value, dtype in (("bf16", torch.bfloat16), (None, torch.float32)):
         if value:
@@ -490,6 +518,11 @@ def test_second_pass_matches_reference(monkeypatch):
     first pass has winners that validation rejects: the port's
     mesh_closest winners are the reference's, and the second pass moved
     some."""
+    _second_pass(monkeypatch)
+
+
+def _second_pass(monkeypatch):
+    same_bvh_build(monkeypatch)
     monkeypatch.setenv("PRT_MESH_DTYPE", "bf16")
     mesh = make_icosphere(subdiv=2, radius=0.6, center=(0.0, -1.0, 0.0))
     jcfg, jsc = j_loader.load_scene("scenes/cornell.json", mesh_override=mesh)
@@ -524,6 +557,18 @@ def test_second_pass_matches_reference(monkeypatch):
     assert rejected.sum() > 0  # the first pass does reject winners
     moved = out[True] != out[False]
     assert moved.any() and not moved[~rejected].any()
+
+
+@pytest.mark.parametrize("check", ["mesh dtype switch", "second pass"])
+def test_cross_package_loads_with_the_jax_library_lost(monkeypatch, check):
+    """The two comparisons above with the JAX package's native library made
+    unavailable in this process (a lost build race): both packages then
+    take their Python BVH builds, and the comparisons hold."""
+    lose_jax_library(monkeypatch)
+    assert j_native.get_lib() is None
+    {"mesh dtype switch": _mesh_dtype_switch,
+     "second pass": _second_pass}[check](monkeypatch)
+    assert os.environ.get("PRT_NO_NATIVE") == "1"
 
 
 def test_bench_kernel_legs(tables, monkeypatch):

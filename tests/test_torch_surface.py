@@ -45,11 +45,12 @@ ALLOWED = {
     ("ops/mesh_brute.py", "uses_pallas"): (
         "uses_kernel", "K1 (CUDA) in place of the Pallas kernel"),
     ("ops/mesh_brute.py", "BLOCK"): (
-        None, "the Pallas kernel's ray block; K1's is BLOCK_RAYS in "
-              "csrc/mesh_brute.cu"),
+        "RELEVANCE_BLOCK", "the Pallas kernel's ray block (PRT_MESH_BLOCK), "
+                           "the reduced forms' relevance block; K1's rays a "
+                           "CTA are BLOCK_RAYS in csrc/mesh_brute.cu"),
     ("ops/mesh_brute.py", "CHUNK_TRIS"): (
-        None, "the Pallas kernel's VMEM chunk of triangles; K1 streams 128-"
-              "triangle tiles (TILE)"),
+        None, "the Pallas kernel's VMEM chunk of triangles; K1 streams tiles "
+              "of TILE triangles"),
     ("ops/mesh_brute.py", "MATMUL_PRECISION"): (
         None, "the TPU kernel's MXU precision; K1 tests in FP32 FMAs"),
     ("ops/mesh_brute.py", "ROW_TINIT"): (

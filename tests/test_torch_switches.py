@@ -36,19 +36,11 @@ NAME = re.compile(r"\bPRT_[A-Z0-9_]+\b")
 
 # (JAX module, switch) -> why the port has no use for it
 ALLOWED = {
-    ("ops/mesh_brute.py", "PRT_MESH_TILE"): (
-        "sizes the TPU kernel's tiles (its VMEM blocks and MXU passes); both "
-        "of the port's mesh kernels fix the tile at 128 triangles (TILE), "
-        "which the packed tables and csrc/*.cu assume: still to port "
-        "(ROADMAP, PRT_MESH_TILE)"),
-    ("ops/mesh_brute.py", "PRT_MESH_BLOCK"): (
-        "the TPU kernel's ray block, a grid size; K1's rays per CTA are "
-        "PRT_K1_BLOCK_RAYS (csrc/mesh_brute.cu) and the tensor-core kernel's "
-        "relevance block is the reference's default, 256"),
     ("ops/mesh_brute.py", "PRT_MESH_CHUNK_TRIS"): (
         "the triangles of one VMEM chunk of the TPU kernel's streamed mode; "
         "the port's kernels read the whole table through the L2, tile by "
-        "tile"),
+        "tile.  It cannot change a result: the streamed mode walks the same "
+        "tiles in the same order (its global tile id pid_j * tpc + j)"),
 }
 
 
