@@ -301,7 +301,7 @@ a process of its own (python -m ...tools.<name>; bisect_bounce also with
 
     python3 chip_smoke.py --tc
 
-runs phases 1-2 and 28 alone (~45 s after the build); no result line.
+runs phases 1-2 and 28 alone (~70 s after the build); no result line.
 
     python3 chip_smoke.py --bdpt-bound
 
@@ -314,10 +314,12 @@ in the card's leg: the readings FWD_BDPT sits between; no result line.
 runs phases 1-2 and only the times of K2, K3, T2a and T2b (phases 4, 7
 and 11, warm and L2-flushed), of W1 (phase 21's populations, warm and
 L2-flushed, W1_TURN_REPEATS readings each, with a digest of its outputs'
-bits) and of T1 (phase 10's, with its inner loop's SASS) on the port in
-DIR (a checkout of another commit; this one's by default), as one JSON
-line; no result line.  Two commits compare in one call: run it for each,
-in turns.
+bits), of K1tc (each reduced form at the default tile and block on
+phase 28's populations, warm and L2-flushed, TC_TURN_REPEATS readings
+each, with a digest of its outputs' bits) and of T1 (phase 10's, with its
+inner loop's SASS) on the port in DIR (a checkout of another commit; this
+one's by default), as one JSON line; no result line.  Two commits compare
+in one call: run it for each, in turns.
 """
 from __future__ import annotations
 
@@ -4396,28 +4398,37 @@ def w1_bound(scene, b, counters, l2) -> dict:
 
 def ptxas_usage(build_log, function) -> dict:
     """``function``'s registers a thread and spill bytes from an nvcc
-    ``-Xptxas=-v`` log ({} when the log holds no such entry), with the
-    warps an SM holds at W1_THREADS a CTA by those registers (an SM's
-    65,536 registers, allocated 256 a warp at a time; at most 64 warps)."""
+    ``-Xptxas=-v`` log ({} when the log holds no such entry; ptxas_entry),
+    with the warps an SM holds at W1_THREADS a CTA by those registers (an
+    SM's 65,536 registers, allocated 256 a warp at a time; at most 64
+    warps)."""
+    out = ptxas_entry(build_log, function)
+    if "registers" in out:
+        warp_regs = -(-out["registers"] * 32 // 256) * 256
+        warps = W1_THREADS // 32
+        ctas = 65536 // (warp_regs * warps)
+        out["warps_per_sm"] = min(64, ctas * warps)
+    return out
+
+
+def ptxas_entry(build_log, function) -> dict:
+    """``function``'s registers and spill bytes from ptxas's -v log ({}
+    when the log holds no such entry)."""
     lines = build_log.splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry function" not in line or function not in line:
-            continue
-        out = {}
-        for nxt in lines[i + 1:i + 6]:
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", nxt)
-            if m:
-                out["spill_stores"], out["spill_loads"] = int(m[1]), int(m[2])
-            m = re.search(r"Used (\d+) registers", nxt)
-            if m:
-                regs = out["registers"] = int(m[1])
-                warp_regs = -(-regs * 32 // 256) * 256
-                warps = W1_THREADS // 32
-                ctas = 65536 // (warp_regs * warps)
-                out["warps_per_sm"] = min(64, ctas * warps)
-                break
-        return out
+        if "Compiling entry function" in line and function in line:
+            out = {}
+            for nxt in lines[i + 1:i + 6]:
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                              r"spill loads", nxt)
+                if m:
+                    out["spill_stores"], out["spill_loads"] = (int(m[1]),
+                                                               int(m[2]))
+                m = re.search(r"Used (\d+) registers", nxt)
+                if m:
+                    out["registers"] = int(m[1])
+                    break
+            return out
     return {}
 
 
@@ -5933,6 +5944,8 @@ TC_SIZE_FORMS = {"default": None, "bf16x3": ("camera", "render"),
                  "bf16x6": ("camera", "render")}
 TC_SIZE_FRAME_FORM = "default"
 TC_EVENT_REPS = 3
+# --kernel-times: readings of each form and population, warm and flushed
+TC_TURN_REPEATS = 2
 # the H100 SXM's dense bf16 tensor-core peak (NVIDIA data sheet, 700 W)
 BF16_FLOP_PER_S = 989e12
 # the tensor-core operations a (ray, triangle) pair of a term needs: the 4
@@ -5941,11 +5954,16 @@ BF16_FLOP_PER_S = 989e12
 TC_PAIR_TENSOR_OPS = 2 * 4 * 10
 # the tensor-core kernel's FP32 operations a (ray, triangle) pair of its hit
 # test (den^2, the three barycentric products and two differences, the two
-# minima, t*den, EPS*den^2, the index's float sum) and a (ray, tile) slab
-# test of its relevance pass (six differences and products, six minima and
-# maxima, the t test)
-TC_PAIR_FLOPS = 13
+# minima, t*den, EPS*den^2, the two sign tests) and a slab test of a ray
+# against a box of its relevance pass (six differences and products, six
+# minima and maxima, the t test)
+TC_PAIR_FLOPS = 12
 TC_SLAB_FLOPS = 20
+# rays a warp of the relevance pass (consecutive rays; a word is tested
+# tile by tile for every ray of a warp when one of them enters its union
+# box) and rays a chunk of tc_slab_tests' [rays, words, 3] temporaries
+TC_WARP_RAYS = 32
+TC_SLAB_CHUNK = 65536
 # how far t may part from the plain version's where the winners agree, as
 # a share of max(|t|, 1): the kernel sums each quantity's products in
 # another order, so the error follows the coordinates (scene units) more
@@ -5976,13 +5994,65 @@ def tc_launch(table, clusters, b, form, norel=False, block=None):
         b["any_hit"], b["exclude"], form, norel=norel, block=block)
 
 
+def tc_slab_tests(clusters, b):
+    """The slab tests of active rays that the kernel's exact relevance
+    method needs on batch ``b``: one against each word's union box (the
+    union of its 32 tiles' boxes; a word holding an empty tile's inverted
+    box has none), and one against each tile of a word for every active
+    ray of a warp (TC_WARP_RAYS consecutive rays) of which some active ray
+    enters the word's union box, or of every word without one -> the
+    count."""
+    import torch
+    nt = clusters.shape[0]
+    nwords = -(-nt // 32)
+    dev = clusters.device
+    lo, hi = clusters[:, 0:3], clusters[:, 3:6]
+    empty = ~(lo <= hi).all(1)
+    pad = nwords * 32 - nt
+    inf = torch.full((pad, 3), float("inf"), device=dev)
+    ulo = torch.cat([torch.where(empty[:, None], float("inf"), lo), inf]
+                    ).view(nwords, 32, 3).amin(1)
+    uhi = torch.cat([torch.where(empty[:, None], -float("inf"), hi), -inf]
+                    ).view(nwords, 32, 3).amax(1)
+    no_union = torch.cat([empty, torch.zeros(pad, dtype=torch.bool,
+                                             device=dev)]
+                         ).view(nwords, 32).any(1)
+    tiles = torch.full((nwords,), 32, device=dev)
+    tiles[-1] = nt - 32 * (nwords - 1)
+    active = b["active"]
+    n = active.shape[0]
+    t_init = torch.broadcast_to(b["t_init"], (n,))
+    enters = []
+    for s in range(0, n, TC_SLAB_CHUNK):
+        o, d = b["origin"][s:s + TC_SLAB_CHUNK], b["direction"][s:s + TC_SLAB_CHUNK]
+        inv = 1.0 / torch.where(d.abs() < 1e-12,
+                                torch.where(d >= 0.0, 1e-12, -1e-12), d)
+        a = (ulo[None] - o[:, None]) * inv[:, None]
+        c = (uhi[None] - o[:, None]) * inv[:, None]
+        ent = torch.clamp(torch.minimum(a, c).amax(-1), min=1e-5)
+        ext = torch.maximum(a, c).amin(-1)
+        enters.append(ent <= torch.minimum(ext, t_init[s:s + TC_SLAB_CHUNK,
+                                                       None]))
+    need = torch.cat(enters) & active[:, None] & ~no_union[None]
+    warps = -(-n // TC_WARP_RAYS)
+    padn = warps * TC_WARP_RAYS - n
+    need = torch.cat([need, need.new_zeros(padn, nwords)]).view(
+        warps, TC_WARP_RAYS, nwords).any(1) | no_union[None]
+    act = torch.cat([active, active.new_zeros(padn)]).view(
+        warps, TC_WARP_RAYS).sum(1)
+    union_tests = int(active.sum()) * int((~no_union).sum())
+    tile_tests = int((need * act[:, None] * tiles[None]).sum())
+    return union_tests + tile_tests
+
+
 def tc_bound(table, clusters, b, form, tri, block=None):
     """The tensor-core kernel's bound on one batch, from the work this
     batch needs: each active lane tests the tiles its block's relevance
     words set, an any-hit lane (by ``tri``, the plain version's result) up
     to its first occluding tile; a (ray, triangle) pair of those costs
     TC_PAIR_TENSOR_OPS bf16 tensor-core operations a term and TC_PAIR_FLOPS
-    FP32 ones; every active ray slab-tests every tile; the fragments, boxes
+    FP32 ones; the relevance pass costs TC_SLAB_FLOPS a slab test of
+    tc_slab_tests; the fragments, boxes
     and rays are read once and (t, tri) written once -> (ms, "bytes" or
     "operations", the numbers).  The table's own tile; relevance blocks of
     ``block`` rays (RELEVANCE_BLOCK when None)."""
@@ -6009,13 +6079,14 @@ def tc_bound(table, clusters, b, form, tri, block=None):
     n_bytes = (frag.numel() * 2 + clusters.numel() * 4
                + n * (12 + 12 + 4 + 1 + 1 + 4) + n * (4 + 4))
     tensor_ops = pairs * TC_PAIR_TENSOR_OPS * terms
-    fp32_ops = (pairs * TC_PAIR_FLOPS + int(b["active"].sum()) * nt
-                * TC_SLAB_FLOPS)
+    slab_tests = tc_slab_tests(clusters, b)
+    fp32_ops = pairs * TC_PAIR_FLOPS + slab_tests * TC_SLAB_FLOPS
     t_mem = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = max(tensor_ops / BF16_FLOP_PER_S, fp32_ops / FP32_FLOP_PER_S) * 1e3
     by = "bytes" if t_mem >= t_ops else "operations"
     return max(t_mem, t_ops), by, dict(
-        ray_triangle_pairs=pairs, tensor_gop=tensor_ops / 1e9,
+        ray_triangle_pairs=pairs, slab_tests=slab_tests,
+        tensor_gop=tensor_ops / 1e9,
         fp32_gop=fp32_ops / 1e9, mb=n_bytes / 1e6,
         tensor_ms=tensor_ops / BF16_FLOP_PER_S * 1e3,
         fp32_ms=fp32_ops / FP32_FLOP_PER_S * 1e3, bytes_ms=t_mem)
@@ -6142,11 +6213,9 @@ def phase_tc(dev, gpu_line, side=TC_SIDE, spp=TC_SPP):
                             models_dir=os.path.join(REPO, "scenes/assets"),
                             device=dev)
     feat, clusters = scene.bf_feat, scene.bf_clusters
-    pops = k1_populations(scene, dev)
-    pops["render"] = regen_dispatch(
-        dataclasses.replace(cfg, mesh_accel="bvh"), scene, FRAME, 8,
-        RENDER_CALL)
+    pops = turn_populations(cfg, scene, dev)
     flush = l2_flush(dev)
+    resources = tc_resources_log()
     saved = mesh_brute._PRECISION_NAME
     saved_block = mesh_brute.RELEVANCE_BLOCK
     problems, forms, norel = [], {}, {}
@@ -6319,7 +6388,7 @@ def phase_tc(dev, gpu_line, side=TC_SIDE, spp=TC_SPP):
     log(f"  phase 28 took {time.perf_counter() - t_phase:.1f} s; on {gpu_line}")
     cam_pop = forms["bf16x6"]["camera"]
     return dict(forms=forms, k1_norel=norel, force_xla=force, frames=frames,
-                sizes=sizes, launches=main_tc, sizes_launches=tc_sizes_main,
+                sizes=sizes, resources=resources, launches=main_tc, sizes_launches=tc_sizes_main,
                 k1_tiles_launches=k1_tiles_main, ms=cam_pop["ms"],
                 flushed_ms=cam_pop["flushed_ms"],
                 plain_ms=cam_pop["plain_ms"], bound=cam_pop["bound"],
@@ -6327,6 +6396,42 @@ def phase_tc(dev, gpu_line, side=TC_SIDE, spp=TC_SPP):
                 err=max(r["max_abs_dt"] for v in list(forms.values())
                         + [f for size in sizes.values()
                            for f in size.values()] for r in v.values()))
+
+
+def tc_resources_log():
+    """The tensor-core kernel's resources at the default (tile, block) and
+    at each of TC_SIZES, each form: registers, local (spill) bytes, shared
+    memory, CTAs an SM and clusters the card holds at once (the CUDA
+    runtime, mesh_brute.tc_resources), and ptxas's spill bytes from the
+    build's log -> {"tile x block": {form: numbers}}.  Fails where the
+    build's N or stage is not the one mesh_brute's emulation takes."""
+    from photorealistic_rendering_using_opencl_tpu_torch.ops import _cuda, mesh_brute
+    out = {}
+    for tile, block in ((128, 256),) + TC_SIZES:
+        size = out[f"{tile} x {block}"] = {}
+        for code, form in enumerate(("bf16", "bf16x3", "bf16x6")):
+            r = mesh_brute.tc_resources(tile, block, form)
+            usage = ptxas_entry(
+                _cuda.LIBRARY.build_log,
+                f"mesh_brute_tc_kernelILi{code}ELi{tile}ELi{block}E")
+            r.update(spill_stores=usage.get("spill_stores"),
+                     spill_loads=usage.get("spill_loads"))
+            size[form] = r
+            log(f"  K1tc {form} at tile {tile}, block {block}: "
+                f"{r['registers']} registers, {r['local_bytes']} local "
+                f"bytes ({r.get('spill_stores', 'no')} spill store bytes "
+                f"by ptxas), {r['dynamic_smem']} B shared memory, "
+                f"{r['threads']} threads and {r['ctas_per_sm']} CTAs an SM, "
+                f"{r['active_clusters']} clusters at once (wgmma N "
+                f"{r['wgmma_n']}, {r['stages']} stages of "
+                f"{r['stage_tris']} triangles)")
+            if (r["wgmma_n"], r["stage_tris"]) != (mesh_brute.TC_N,
+                                                   mesh_brute.TC_STAGE_TRIS):
+                fail(f"K1tc {form} at tile {tile}, block {block}: the build's "
+                     f"N and stage ({r['wgmma_n']}, {r['stage_tris']}) are "
+                     f"not mesh_brute's TC_N and TC_STAGE_TRIS "
+                     f"({mesh_brute.TC_N}, {mesh_brute.TC_STAGE_TRIS})")
+    return out
 
 
 def tc_sizes(scene, pops, problems):
@@ -6381,21 +6486,35 @@ def phase_k1_sweep(dev, pops):
              f"kernel library's: {wrong[:6]}")
 
 
-def w1_turn_times(cfg, scene, dev, flush, repeats=W1_TURN_REPEATS):
+def bits_digest(outs, dev) -> int:
+    """A digest of tensors' bits (each element's 32 bits times its place),
+    equal across ports whose outputs agree bitwise."""
+    import torch
+    return sum(int((x.view(torch.int32).to(torch.int64)
+                    * torch.arange(1, x.numel() + 1, device=dev)).sum())
+               for x in outs)
+
+
+def turn_populations(cfg, scene, dev):
+    """Phase 21's (and 28's) four populations: phase 3's random, camera and
+    surface, and the render population of a regen frame's RENDER_CALL-th
+    mesh call."""
+    import dataclasses
+    pops = k1_populations(scene, dev)
+    pops["render"] = regen_dispatch(
+        dataclasses.replace(cfg, mesh_accel="bvh"), scene, FRAME, 8,
+        RENDER_CALL)
+    return pops
+
+
+def w1_turn_times(pops, scene, dev, flush, repeats=W1_TURN_REPEATS):
     """--kernel-times' W1: phase 21's four populations through the
     wrapper's signature that W1's first design already had (so that an
     older port times the same way), each read ``repeats`` times warm and with
     the L2 flushed (event_ms over W1_EVENT_REPS launches), and a digest of
     the outputs' bits (t, tri, u, v), equal across ports that agree
     bitwise."""
-    import dataclasses
-
-    import torch
     from photorealistic_rendering_using_opencl_tpu_torch.ops import bvh_walk
-    pops = k1_populations(scene, dev)
-    pops["render"] = regen_dispatch(
-        dataclasses.replace(cfg, mesh_accel="bvh"), scene, FRAME, 8,
-        RENDER_CALL)
     out = {}
     for name, b in pops.items():
         def launch(b=b):
@@ -6403,9 +6522,7 @@ def w1_turn_times(cfg, scene, dev, flush, repeats=W1_TURN_REPEATS):
                 scene.bvh_nodes, scene.bvh_links, scene.leaf_verts,
                 b["origin"], b["direction"], b["t_init"], b["active"],
                 b["any_hit"])
-        digest = sum(int((x.view(torch.int32).to(torch.int64)
-                          * torch.arange(1, x.numel() + 1, device=dev)).sum())
-                     for x in launch())
+        digest = bits_digest(launch(), dev)
         r = out[name] = dict(
             warm=[event_ms(launch, W1_EVENT_REPS)["ms"]
                   for _ in range(repeats)],
@@ -6418,18 +6535,60 @@ def w1_turn_times(cfg, scene, dev, flush, repeats=W1_TURN_REPEATS):
     return out
 
 
+def tc_turn_times(pops, scene, dev, flush, repeats=TC_TURN_REPEATS):
+    """--kernel-times' K1tc: each reduced form (TC_FORMS' labels but the
+    bf16 table, which runs form bf16 as "default" does) at the default
+    tile and relevance block on the four populations, through the wrapper
+    and fragments the kernel has had since it was ported (so that an older
+    port times the same way), each read ``repeats`` times warm and with the
+    L2 flushed (event_ms over TC_EVENT_REPS launches), a digest of the
+    outputs' bits (t, tri) and the bound (tc_bound, from the plain
+    version's winners)."""
+    from photorealistic_rendering_using_opencl_tpu_torch.ops import mesh_brute
+    feat, clusters = scene.bf_feat, scene.bf_clusters
+    saved = mesh_brute._PRECISION_NAME
+    out = {}
+    try:
+        for label in ("default", "bf16x3", "bf16x6"):
+            table, form = tc_form(feat, label)
+            out[form] = {}
+            for name, b in pops.items():
+                def launch(b=b, table=table, form=form):
+                    return tc_launch(table, clusters, b, form)
+                digest = bits_digest(launch(), dev)
+                tri = mesh_brute.intersect_reduced_plain(
+                    table, clusters, b["origin"], b["direction"], b["t_init"],
+                    b["active"], b["any_hit"], b["exclude"], form)[1]
+                bound, by, _ = tc_bound(table, clusters, b, form, tri)
+                r = out[form][name] = dict(
+                    warm=[event_ms(launch, TC_EVENT_REPS)["ms"]
+                          for _ in range(repeats)],
+                    flushed=[event_ms(launch, TC_EVENT_REPS, flush)["ms"]
+                             for _ in range(repeats)],
+                    digest=digest, bound=bound, by=by)
+                log(f"  K1tc {form} {name}: warm "
+                    + " ".join(f"{x:.4f}" for x in r["warm"])
+                    + " ms, flushed "
+                    + " ".join(f"{x:.4f}" for x in r["flushed"])
+                    + f" ms; bound {bound:.4f} ms ({by}); digest {digest}")
+    finally:
+        mesh_brute._PRECISION_NAME = saved
+    return out
+
+
 def kernel_times(dev, root):
     """--kernel-times: K2 (phase 4's image), T2a and T2b (phase 11's
     inputs, each in turns with x.clone()), K3 (phase 7's sizes, in turns
     with x.clone() and the per-block torch.cumsum), all warm and with the
     L2 flushed, W1 (phase 21's populations, warm and flushed,
-    w1_turn_times) and T1 (phase 10's batch at both blocks, CUDA events,
+    w1_turn_times), K1tc (the same populations, each reduced form,
+    tc_turn_times) and T1 (phase 10's batch at both blocks, CUDA events,
     with its inner loop's SASS), on the port found at ``root``; one JSON
     line."""
     from photorealistic_rendering_using_opencl_tpu_torch.ops import _cuda, compaction, mesh_brute
     from photorealistic_rendering_using_opencl_tpu_torch.ops import tonemap as tm
     from photorealistic_rendering_using_opencl_tpu_torch.scene.loader import load_scene
-    log(f"[4, 7, 10, 11, 21] kernel times of the port at {root}")
+    log(f"[4, 7, 10, 11, 21, 28] kernel times of the port at {root}")
     flush = l2_flush(dev)
     res = {"port_root": root, "K2": k2_times(tm, k2_image(dev), flush)}
     for name, fn, arg in t2_inputs(dev):
@@ -6441,8 +6600,10 @@ def kernel_times(dev, root):
     cfg, scene = load_scene(os.path.join(REPO, "scenes/cornell_hi.json"),
                             models_dir=os.path.join(REPO, "scenes/assets"),
                             device=dev)
-    res["W1"] = w1_turn_times(cfg, scene, dev, flush)
-    b = k1_populations(scene, dev)["random"]
+    pops = turn_populations(cfg, scene, dev)
+    res["W1"] = w1_turn_times(pops, scene, dev, flush)
+    res["K1tc"] = tc_turn_times(pops, scene, dev, flush)
+    b = pops["random"]
     res["T1"] = {str(blk): t1_time(mesh_brute, b, scene.bf_feat,
                                    scene.bf_clusters, blk)
                  for blk in T1_BLOCKS}
@@ -6475,8 +6636,8 @@ def main(argv=None) -> int:
                      or tc_only):
         fail(f"unknown arguments {argv}: none, --kernels-only, --k1-sweep, "
              "--op-census, --paths, --walk, --sharded, --bdpt-bound, "
-             "--regen-scan, --tools, --tc or --kernel-times [--port-root "
-             "DIR]")
+             "--regen-scan, --tools, --tc or --kernel-times "
+             "[--port-root DIR]")
     root = os.path.abspath(argv[2]) if times and len(argv) == 3 else REPO
     if not os.path.isdir(os.path.join(root, PKG)):
         fail(f"the port package {PKG}/ is not in {root}")
@@ -6515,7 +6676,7 @@ def main(argv=None) -> int:
     if times:
         kernel_times(dev, root)
         log("partial run (--kernel-times: phases 1-2 and the times of K2, "
-            "K3, T1, T2a, T2b and W1); no result line")
+            "K3, T1, T2a, T2b, W1 and K1tc); no result line")
         return 0
 
     t_start = time.perf_counter()
@@ -6874,7 +7035,7 @@ def main(argv=None) -> int:
                      "call of intersect_reduced_plain, ending in "
                      "torch.cuda.synchronize",
          "by_form": tc["forms"], "by_size": tc["sizes"],
-         "frames": tc["frames"],
+         "resources": tc["resources"], "frames": tc["frames"],
          "k1_norel": tc["k1_norel"], "force_xla": tc["force_xla"]})
     for name, line in (("T2a", 57), ("T2b", 112)):
         k = t2[name]

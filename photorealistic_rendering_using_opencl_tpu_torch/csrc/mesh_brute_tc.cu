@@ -1,5 +1,5 @@
 // K1's reduced-precision forms on the tensor cores (K1tc), for Hopper
-// (sm_90a): the C entry, and the kernel's instances for tiles of 128
+// (sm_90a): the C entries, and the kernel's instances for tiles of 128
 // triangles.  The kernel, what it computes, its design and its bound are
 // in mesh_brute_tc.cuh; the instances for tiles of 256 and 512 triangles
 // are in mesh_brute_tc_256.cu and mesh_brute_tc_512.cu.
@@ -12,9 +12,23 @@
 #include "mesh_brute_tc.cuh"
 
 int mesh_brute_tc_launch_128(const TcArgs& a, int block, int form,
-                             cudaStream_t stream) {
-  return launch_tile<128>(a, block, form, stream);
+                             cudaStream_t stream, int* info) {
+  return launch_tile<128>(a, block, form, stream, info);
 }
+
+namespace {
+
+int dispatch(const TcArgs& a, int tile, int block, int form,
+             cudaStream_t stream, int* info) {
+  switch (tile) {
+    case 128: return mesh_brute_tc_launch_128(a, block, form, stream, info);
+    case 256: return mesh_brute_tc_launch_256(a, block, form, stream, info);
+    case 512: return mesh_brute_tc_launch_512(a, block, form, stream, info);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -30,13 +44,17 @@ int prt_mesh_brute_tc(const void* frag, int nt, int tile, int block,
   if (nt < 1 || nt > MAX_WORDS * 32) return (int)cudaErrorInvalidValue;
   const TcArgs a{frag, nt, clusters, origin, direction, t_init, active,
                  any_hit, exclude, n, out_t, out_tri, norel};
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (tile) {
-    case 128: return mesh_brute_tc_launch_128(a, block, form, s);
-    case 256: return mesh_brute_tc_launch_256(a, block, form, s);
-    case 512: return mesh_brute_tc_launch_512(a, block, form, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch(a, tile, block, form, (cudaStream_t)stream, nullptr);
+}
+
+// The resources of the (tile, block, form) instance on the current device,
+// into out[TC_INFO]: registers a thread, local (spill) bytes a thread,
+// static and dynamic shared memory a CTA, threads a CTA, CTAs an SM and
+// clusters the card can hold at once (the occupancy calculator), and the
+// build's N, stages and triangles a stage.
+int prt_mesh_brute_tc_resources(int tile, int block, int form, int* out) {
+  const TcArgs a{};
+  return dispatch(a, tile, block, form, nullptr, out);
 }
 
 }  // extern "C"

@@ -3,6 +3,6 @@
 #include "mesh_brute_tc.cuh"
 
 int mesh_brute_tc_launch_512(const TcArgs& a, int block, int form,
-                             cudaStream_t stream) {
-  return launch_tile<512>(a, block, form, stream);
+                             cudaStream_t stream, int* info) {
+  return launch_tile<512>(a, block, form, stream, info);
 }

@@ -48,6 +48,7 @@ _SIGNATURES = {
     "prt_mesh_brute_tc": [_c_vp, _c_int, _c_int, _c_int, _c_vp, _c_vp, _c_vp,
                           _c_vp, _c_vp, _c_vp, _c_vp, _c_ll, _c_vp, _c_vp,
                           _c_int, _c_int, _c_vp],
+    "prt_mesh_brute_tc_resources": [_c_int, _c_int, _c_int, _c_vp],
     "prt_tonemap": [_c_vp, _c_vp, _c_int, _c_int, _c_int, _c_int, _c_int,
                     _c_float, _c_int, _c_vp],
     "prt_block_scan": [_c_vp, _c_vp, _c_vp, _c_ll, _c_int, _c_vp],

@@ -482,7 +482,14 @@ mesh_brute_kernel = _MeshBruteKernel()
 # The tensor-core kernel of the reduced-precision forms
 # ---------------------------------------------------------------------------
 
-TC_CHUNK = 16  # triangles an mma's A fragment holds (its 16 rows)
+# the kernel's shape (csrc/mesh_brute_tc.cuh: N, STAGE_TRIS): columns a
+# wgmma (m64nNk16, N / 4 triangles) and triangles a ring stage.  The table
+# image does not depend on either; the CPU tests use them to emulate the
+# kernel's accumulators and triangle indices, and chip_smoke.py checks them
+# against the build (tc_resources)
+TC_N = 64
+TC_STAGE_TRIS = 64
+TC_TRI_BYTES = 128  # a triangle's 4 quantities x 16 features, bf16
 # the kernel keeps a block's relevance bits in shared memory (256 words),
 # whatever the tile's size
 TC_MAX_TILES = 8192
@@ -493,36 +500,49 @@ def table_parts(form):
     return max(i for i, _ in FORM_TERMS[form]) + 1
 
 
-def _fragment_index():
-    """[32, 8] (row, column) of the 8 bf16 values lane l of a warp holds of
-    an m16n8k16 A fragment, in register order: a0-a7 = (g, 2t), (g, 2t+1),
-    (g+8, 2t), (g+8, 2t+1), (g, 2t+8), (g, 2t+9), (g+8, 2t+8), (g+8, 2t+9)
-    with g = l // 4, t = l % 4 (PTX ISA, mma.m16n8k16 .bf16)."""
-    lane = torch.arange(32)
-    g, t = lane // 4, lane % 4
-    rows = torch.stack([g, g, g + 8, g + 8, g, g, g + 8, g + 8], dim=1)
-    cols = torch.stack([2 * t, 2 * t + 1, 2 * t, 2 * t + 1,
-                        2 * t + 8, 2 * t + 9, 2 * t + 8, 2 * t + 9], dim=1)
-    return rows, cols
+def tc_column_map(tile):
+    """(triangle, quantity) of each of a tile's 4 x ``tile`` columns in the
+    kernel's order: column n = 16m + 8h + 2tig + b holds quantity 2h + b
+    (den, t*den, u*den, v*den) of the tile's triangle 4m + tig, so that
+    m64nN's accumulators give a thread all four quantities of one pair
+    (``tc_accumulator_map``)."""
+    n = torch.arange(4 * tile)
+    return 4 * (n // 16) + (n % 8) // 2, 2 * ((n // 8) % 2) + n % 2
+
+
+def tc_accumulator_map(n_cols=TC_N):
+    """[128, n_cols / 2] (row, column) of each f32 accumulator of a
+    wgmma.m64n{n_cols}k16 over a warpgroup, in register order: register
+    4i + e of lane 4g + tig of warp w is row 16w + g + 8 (e >> 1), column
+    8i + 2 tig + (e & 1) (PTX ISA, wgmma's register fragment of D)."""
+    thread = torch.arange(128)[:, None]
+    reg = torch.arange(n_cols // 2)[None, :]
+    w, g, tig = thread // 32, (thread % 32) // 4, thread % 4
+    i, e = reg // 4, reg % 4
+    return 16 * w + g + 8 * (e >> 1), 8 * i + 2 * tig + (e & 1)
 
 
 def tc_fragments(feat, n_parts, tile=None):
     """The coefficient table cut into ``n_parts`` bf16 parts
     (``hi_lo_parts``; one part of a bf16 table is the table) and laid out
-    as the tensor-core kernel loads its A fragments -> [n_parts, nt,
-    tile / 16, 4, 32, 8] bf16: for each part, tile (of ``tile`` triangles,
-    TILE when None), chunk of TC_CHUNK triangles and quantity q (den,
-    t*den, u*den, v*den), the 16 bytes lane l holds of the 16 x 16 fragment
-    (row: the chunk's triangle, column: the ray feature)."""
+    as the exact image of the kernel's shared-memory slabs -> [n_parts, nt,
+    tile / 2, 2, 8, 8] bf16: for each part and tile (of ``tile``
+    triangles, TILE when None), the tile's 4 x tile columns in
+    ``tc_column_map``'s order as wgmma's K-major core matrices without
+    swizzle: [column // 8][feature // 8][column % 8][feature % 8], 8
+    columns x 8 features (128 bytes) a core matrix, the next 8 features 128
+    bytes on, the next 8 columns 256.  A ring stage of the kernel is one
+    contiguous TC_STAGE_TRIS x 128 bytes of it a part."""
     tile = TILE if tile is None else tile
     k, cols4 = feat.shape
     nt = cols4 // (4 * tile)
     src = feat if feat.dtype == torch.bfloat16 else feat.float()
     parts = torch.stack(hi_lo_parts(src, n_parts))  # [P, 16, 4*Tpad]
-    a = parts.reshape(n_parts, k, nt, 4, tile // TC_CHUNK, TC_CHUNK)
-    a = a.permute(0, 2, 4, 3, 5, 1)  # [P, nt, chunk, q, row, feature]
-    rows, cols = _fragment_index()
-    return a[..., rows.to(feat.device), cols.to(feat.device)].contiguous()
+    tri, q = tc_column_map(tile)
+    a = parts.reshape(n_parts, k, nt, 4 * tile)[
+        ..., (q * tile + tri).to(feat.device)]  # [P, 16, nt, column]
+    a = a.reshape(n_parts, 2, 8, nt, tile // 2, 8)  # [P, kh, k8, nt, c8, r]
+    return a.permute(0, 3, 4, 1, 5, 2).contiguous()
 
 
 # each table's fragments, made once per table, number of parts and tile
@@ -571,15 +591,20 @@ class _MeshBruteTcKernel:
         if nt > TC_MAX_TILES:
             raise ValueError(f"{nt} tiles: the kernel takes at most "
                              f"{TC_MAX_TILES}")
-        tile = frag.shape[2] * TC_CHUNK if frag.dim() == 6 else 0
+        tile = frag.shape[2] * 2 if frag.dim() == 6 else 0
         _cuda.require(frag, "frag", torch.bfloat16,
-                      (n_parts, nt, tile // TC_CHUNK, 4, 32, 8), dev)
+                      (n_parts, nt, tile // 2, 2, 8, 8), dev)
         kernel_tile(tile)
         block = kernel_block(RELEVANCE_BLOCK if block is None else block)
         if frag.data_ptr() % 16:
-            raise ValueError("frag: the kernel loads it in 16-byte pieces; "
-                             "its data must start on a 16-byte boundary")
+            raise ValueError("frag: the kernel copies it to shared memory "
+                             "in bulk; its data must start on a 16-byte "
+                             "boundary")
         _cuda.require(clusters, "clusters", torch.float32, (nt, 8), dev)
+        if clusters.data_ptr() % 16:
+            raise ValueError("clusters: the kernel loads a box in two "
+                             "16-byte pieces; its data must start on a "
+                             "16-byte boundary")
         _cuda.require(origin, "origin", torch.float32, (n, 3), dev)
         _cuda.require(direction, "direction", torch.float32, (n, 3), dev)
         _cuda.require(t_init, "t_init", torch.float32, (n,), dev)
@@ -605,6 +630,23 @@ class _MeshBruteTcKernel:
 
 
 mesh_brute_tc_kernel = _MeshBruteTcKernel()
+
+# the ints prt_mesh_brute_tc_resources writes, in order
+TC_RESOURCES = ("registers", "local_bytes", "static_smem", "dynamic_smem",
+                "threads", "ctas_per_sm", "active_clusters", "wgmma_n",
+                "stages", "stage_tris")
+
+
+def tc_resources(tile, block, form):
+    """The tensor-core kernel's (tile, block, form) instance on the current
+    card (the CUDA runtime's function attributes and occupancy calculator)
+    -> {name: int} by TC_RESOURCES; needs the card."""
+    import ctypes
+    out = (ctypes.c_int * len(TC_RESOURCES))()
+    code = _cuda.LIBRARY.get().prt_mesh_brute_tc_resources(
+        kernel_tile(tile), kernel_block(block), _FORM_CODES[form], out)
+    _cuda.check(code, "prt_mesh_brute_tc_resources")
+    return dict(zip(TC_RESOURCES, out))
 
 
 def uses_kernel(x: torch.Tensor) -> bool:

@@ -80,6 +80,14 @@ def tables():
     return _pack()
 
 
+def _pack_at(tile):
+    """The port's tables of ``_pack``'s mesh at ``tile`` triangles a tile
+    (bitwise the JAX package's: tests/test_torch_mesh_tile.py)."""
+    tv, tn = make_icosphere(subdiv=3, radius=0.8, center=(0.1, -0.2, 0.3))
+    order = j_bvh.build_bvh(tv).order
+    return mesh_brute.pack_brute(tv[order], tn[order], tile)
+
+
 POPULATIONS = ("random", "camera", "surface")
 
 
@@ -433,29 +441,159 @@ def test_kernel_launch_by_switch(tables, fake_library, monkeypatch, name,
         assert args[0] == frag.data_ptr() and frag.shape[0] == parts
 
 
+def test_tc_wrapper_checks_the_image(tables, fake_library):
+    """The wrapper takes the table image's shape ([parts, nt, tile / 2, 2,
+    8, 8]) and nothing else (the old per-lane fragments, another part
+    count, f32), and an image or boxes whose data start off a 16-byte
+    boundary (the bulk copies' and the box loads' alignment) raise: no C
+    call, no launch counted.  A ring stage is a whole number of 16-byte
+    pieces and every kernel tile a whole number of stages.  (That the
+    Python side's wgmma width and stage are the build's is checked on the
+    card, by chip_smoke.py's tc_resources_log.)"""
+    feat = torch.from_numpy(tables.feat)
+    clusters = torch.from_numpy(tables.clusters)
+    lanes = [torch.from_numpy(x) for x in _lanes("camera", tables, n=64)]
+    nt = clusters.shape[0]
+    frag = mesh_brute.form_fragments(feat, "bf16x3")
+    assert frag.shape == (2, nt, 64, 2, 8, 8)
+    wrapper = mesh_brute.mesh_brute_tc_kernel
+    before = wrapper.launches
+    old = torch.zeros(2, nt, 8, 4, 32, 8, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="frag"):
+        wrapper(old, clusters, *lanes, "bf16x3")
+    with pytest.raises(ValueError, match="frag"):
+        wrapper(frag, clusters, *lanes, "bf16x6")
+    with pytest.raises(TypeError, match="frag"):
+        wrapper(frag.float(), clusters, *lanes, "bf16x3")
+    base = torch.zeros(frag.numel() + 8, dtype=torch.bfloat16)
+    off = base[1:1 + frag.numel()].view(frag.shape)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        wrapper(off, clusters, *lanes, "bf16x3")
+    boxes = torch.zeros(clusters.numel() + 1)
+    off_boxes = boxes[1:].view(clusters.shape).copy_(clusters)
+    with pytest.raises(ValueError, match="16-byte"):
+        wrapper(frag, off_boxes, *lanes, "bf16x3")
+    assert wrapper.launches == before and not fake_library.calls
+    wrapper(frag, clusters, *lanes, "bf16x3")
+    [(name, args)] = fake_library.calls
+    assert name == "prt_mesh_brute_tc" and args[0] == frag.data_ptr()
+    assert args[1:4] == (nt, 128, mesh_brute.RELEVANCE_BLOCK)
+    assert wrapper.launches == before + 1
+    stage_bytes = mesh_brute.TC_STAGE_TRIS * mesh_brute.TC_TRI_BYTES
+    assert stage_bytes % 16 == 0
+    assert all(t % mesh_brute.TC_STAGE_TRIS == 0
+               for t in mesh_brute.KERNEL_TILES)
+    assert frag[0, 0].numel() * 2 == 128 * mesh_brute.TC_TRI_BYTES
+
+
 @pytest.mark.parametrize("dtype,parts", [(torch.float32, 3),
                                          (torch.float32, 1),
                                          (torch.bfloat16, 1)])
 def test_fragments_hold_the_table_parts(tables, dtype, parts):
-    """Every 16 x 16 A fragment rebuilt from the 32 lanes' 8 values (PTX's
-    m16n8k16 layout, ``_fragment_index``) is its part's block of the
-    table: quantity q of 16 triangles (rows) over the 16 ray features."""
+    """Every column of the table image rebuilt from its two core matrices
+    ([column // 8][feature // 8][column % 8][feature % 8], the kernel's
+    K-major shared-memory slabs) is its part's table column of the
+    (triangle, quantity) that ``tc_column_map`` gives it, and each tile's
+    4 x 128 (triangle, quantity) pairs are held by exactly one column."""
     feat = torch.from_numpy(tables.feat).to(dtype)
     frag = mesh_brute.tc_fragments(feat, parts)
     nt = tables.clusters.shape[0]
-    assert frag.shape == (parts, nt, 8, 4, 32, 8)
+    assert frag.shape == (parts, nt, 64, 2, 8, 8)
     assert frag.dtype == torch.bfloat16 and frag.is_contiguous()
-    rows, cols = mesh_brute._fragment_index()
-    block = torch.zeros(parts, nt, 8, 4, 16, 16, dtype=torch.bfloat16)
-    block[..., rows, cols] = frag
+    cols = frag.permute(0, 1, 2, 4, 3, 5).reshape(parts, nt, 512, 16)
+    tri, q = mesh_brute.tc_column_map(128)
     src = feat if dtype == torch.bfloat16 else feat.float()
     for p, part in enumerate(mesh_brute.hi_lo_parts(src, parts)):
-        want = part.reshape(16, nt, 4, 8, 16).permute(1, 3, 2, 4, 0)
-        assert torch.equal(block[p].view(torch.int16),
-                           want.contiguous().view(torch.int16))
-    # each (row, column) of a fragment is held by exactly one lane slot
-    assert len(set(zip(rows.flatten().tolist(),
-                       cols.flatten().tolist()))) == 256
+        want = part.reshape(16, nt, 4 * 128)[:, :, q * 128 + tri]
+        assert torch.equal(cols[p].view(torch.int16),
+                           want.permute(1, 2, 0).contiguous()
+                           .view(torch.int16))
+    assert len(set(zip(tri.tolist(), q.tolist()))) == 512
+    assert sorted(set(tri.tolist())) == list(range(128))
+
+
+def _wgmma_emulation(feat, clusters, lanes, form, tile):
+    """The kernel's arithmetic for one warpgroup of 64 rays, emulated in
+    float64: A from the rays' parts as the kernel builds it, B from the
+    table image a stage and wgmma slab at a time, D = sum over the form's
+    terms of A_j . B_i, each thread's registers d[8m + 2r + {0, 1, 4, 5}]
+    read through ``tc_accumulator_map`` -> (the quantities the kernel tests
+    together [tile, stage, slab, thread, m, r, 4], the (ray, column) each
+    came from, the triangle index the kernel derives for them)."""
+    n_col, stage = mesh_brute.TC_N, mesh_brute.TC_STAGE_TRIS
+    terms = mesh_brute.FORM_TERMS[form]
+    n_ray = max(j for _, j in terms) + 1
+    f = mesh_brute._ray_features(lanes[0], lanes[1])[:64]
+    if form == "bf16":
+        a_parts = [f.to(torch.bfloat16).double()]
+    else:
+        a_parts = [x.double() for x in mesh_brute.hi_lo_parts(f, n_ray)]
+    image = mesh_brute.tc_fragments(feat, mesh_brute.table_parts(form), tile)
+    rows, cols = mesh_brute.tc_accumulator_map(n_col)
+    thread = torch.arange(128)
+    tig = thread % 4
+    regs = torch.tensor([[[8 * m + 2 * r + e for e in (0, 1, 4, 5)]
+                          for r in range(2)] for m in range(n_col // 16)])
+    nt = clusters.shape[0]
+    out = torch.empty(nt, tile // stage, stage * 4 // n_col, 128,
+                      n_col // 16, 2, 4, dtype=torch.float64)
+    tri_idx = torch.empty(out.shape[:-1], dtype=torch.int64)
+    where = (rows[:, regs], cols[:, regs])  # [128, m, r, 4] each
+    for j in range(nt):
+        for s in range(tile // stage):
+            for c in range(stage * 4 // n_col):
+                c8 = s * stage // 2 + c * n_col // 8
+                d = torch.zeros(64, n_col, dtype=torch.float64)
+                for ti, tj in terms:
+                    slab = image[ti, j, c8:c8 + n_col // 8]  # [c8, kh, r, k8]
+                    b = slab.permute(1, 3, 0, 2).reshape(16, n_col).double()
+                    d += a_parts[tj] @ b
+                out[j, s, c] = d[where]
+                m = torch.arange(n_col // 16)
+                tri_idx[j, s, c] = (j * tile + s * stage + c * (n_col // 4)
+                                    + 4 * m[None, :, None]
+                                    + tig[:, None, None]).expand(-1, -1, 2)
+    return out, where, tri_idx
+
+
+@pytest.mark.parametrize("tile", [128, 256, 512])
+@pytest.mark.parametrize("form", ["bf16", "bf16x3", "bf16x6"])
+def test_wgmma_layout_emulated(form, tile):
+    """The table image, wgmma's accumulator layout and the kernel's reads of
+    it, emulated: the four registers a thread tests together hold den,
+    t*den, u*den and v*den of one (ray, triangle) pair, ray 16w + g + 8r of
+    the warpgroup and the triangle the kernel derives from (tile, stage,
+    slab, m, tig), each equal to the plain version's product of the form's
+    stacked parts (both summed in float64)."""
+    bp = _pack_at(tile)
+    feat = torch.from_numpy(bp.feat)
+    clusters = torch.from_numpy(bp.clusters)
+    lanes = [torch.from_numpy(x) for x in _lanes("camera", bp, n=64)]
+    got, (rows, cols), tri_idx = _wgmma_emulation(feat, clusters, lanes,
+                                                  form, tile)
+    # the four registers: one row, and columns of one triangle, quantities
+    # 0-3 in order (tc_column_map of the slab's columns)
+    tri, q = mesh_brute.tc_column_map(mesh_brute.TC_N // 4)
+    assert bool((rows == rows[..., :1]).all())
+    thread = torch.arange(128)[:, None, None]
+    r = torch.arange(2)[None, None, :]
+    assert torch.equal(rows[..., 0], (16 * (thread // 32) + (thread % 32) // 4
+                                      + 8 * r).expand_as(rows[..., 0]))
+    assert bool((tri[cols] == tri[cols][..., :1]).all())
+    assert torch.equal(q[cols], torch.arange(4).expand_as(cols))
+    assert torch.equal(tri[cols][..., 0], (4 * torch.arange(
+        mesh_brute.TC_N // 16)[None, :, None] + thread % 4).expand(-1, -1, 2))
+    # the values: the plain version's stacked product at (ray, triangle)
+    ray_f, table_a, _ = mesh_brute._form_operands(
+        feat, mesh_brute._ray_pack(*lanes), form)
+    want = ray_f[:64].double() @ table_a.double()  # [64, 4 * Tpad]
+    c = tile
+    col = ((tri_idx // c) * 4 * c)[..., None] + torch.arange(4) * c \
+        + (tri_idx % c)[..., None]
+    ray = rows.expand(got.shape[:3] + rows.shape)
+    assert torch.allclose(got, want[ray, col], rtol=1e-12, atol=1e-12)
+    assert int((got[..., 0] != 0).sum()) > 0
 
 
 def test_fragments_are_made_once_per_table(tables):
