@@ -18,6 +18,7 @@ from photorealistic_rendering_using_opencl_tpu_torch.models import pathtracer
 from photorealistic_rendering_using_opencl_tpu_torch.scene.types import (
     SceneConfig, SceneData,
 )
+from photorealistic_rendering_using_opencl_tpu_torch.utils.profiling import spanned
 
 DEFAULT_PARAM_LEAVES = ("color", "obj_color")
 
@@ -40,8 +41,10 @@ def make_loss_fn(cfg: SceneConfig, scene: SceneData, cam, width: int,
                  height: int, spp: int, target,
                  param_leaves: Iterable[str] = DEFAULT_PARAM_LEAVES,
                  method: str = "scan", regen_iters: int = 0):
-    """Returns loss(params_dict, seed) closing over the rest of the scene."""
+    """Returns loss(params_dict, seed) closing over the rest of the scene;
+    each call is a step's forward (span ``prt.forward``)."""
 
+    @spanned("prt.forward", request=True)
     def loss(params, seed):
         s = dataclasses.replace(scene, **params)
         return image_loss(cfg, s, cam, width, height, spp, target, seed,

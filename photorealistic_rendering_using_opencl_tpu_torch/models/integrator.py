@@ -45,6 +45,9 @@ from photorealistic_rendering_using_opencl_tpu_torch.scene.types import (
     SceneConfig, SceneData, SPECULAR_LOBE, SPECULAR_REFLECTION_LOBE,
     TRANSMISSIVE_LOBE,
 )
+from photorealistic_rendering_using_opencl_tpu_torch.utils.profiling import (
+    TRACER, spanned,
+)
 
 # random-dimension layout: dims [0,8) belong to the camera; each bounce
 # consumes a fixed window so streams are schedule-invariant
@@ -165,6 +168,7 @@ def _where_i(cond, a, b):
     return torch.where(cond, a, b).to(torch.int32)
 
 
+@spanned("prt.shade")
 def shade_step(cfg: SceneConfig, scene: SceneData, state: PathState,
                hit: Hit, sampler: Sampler):
     """Advance every live path by one event (surface bounce or scatter).
@@ -508,6 +512,8 @@ def _trace_shade(cfg: SceneConfig, scene: SceneData, pixel_idx, sample_idx,
     sampler = Sampler(pixel_idx, sample_idx, seed=seed, scheme=rng_scheme,
                       dim=CAMERA_DIMS + bounce * DIMS_PER_BOUNCE)
     was_scatter = state.n_scatter
+    if TRACER.on:
+        TRACER.shaded("loop", "bounces", state.alive)
     state, nee = shade_step(cfg, scene, state, hit, sampler)
     return state, nee, _self_exclusion(cfg, hit, state, was_scatter)
 
@@ -562,10 +568,12 @@ def trace(cfg: SceneConfig, scene: SceneData, origin, direction,
             cfg, scene, origin, direction, state.alive, [],
             early_exit=early_exit)
         carry = (state, [], rec)
+        request = TRACER.request
 
         def shade(c, bounce):
-            return _trace_shade(cfg, scene, pixel_idx, sample_idx, seed,
-                                rng_scheme, c, bounce)
+            with TRACER.recompute(request):
+                return _trace_shade(cfg, scene, pixel_idx, sample_idx, seed,
+                                    rng_scheme, c, bounce)
 
         for bounce in range(n_steps):
             last = bounce + 1 >= n_steps

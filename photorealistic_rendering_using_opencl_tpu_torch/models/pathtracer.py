@@ -49,6 +49,9 @@ from photorealistic_rendering_using_opencl_tpu_torch.scene.types import (
 from photorealistic_rendering_using_opencl_tpu_torch.utils.device import (
     DEFAULT_DEVICE, resolve_device,
 )
+from photorealistic_rendering_using_opencl_tpu_torch.utils.profiling import (
+    TRACER, spanned,
+)
 
 _SAMPLE_METHODS = ("scan", "while", "bdpt")
 
@@ -219,6 +222,8 @@ def _shade_regenerate(cfg: SceneConfig, scene: SceneData, cam_pytree,
                       + bounce * integrator.DIMS_PER_BOUNCE)
     was_alive = state.alive
     was_scatter = state.n_scatter
+    if TRACER.on:
+        TRACER.shaded("regen", "iterations", was_alive)
     state, nee = integrator.shade_step(cfg, scene, state, hit, sampler)
     excl = integrator._self_exclusion(cfg, hit, state, was_scatter)
     bounce = torch.where(was_alive, bounce + 1, bounce)
@@ -432,16 +437,22 @@ def trace_regen_scan(cfg: SceneConfig, scene: SceneData, cam_pytree,
     n = px.shape[0]
     carry = _regen_carry0(cfg, n, px.device)
     chunk = integrator.SCAN_CHUNK
+    request = TRACER.request
 
     def shade(c):
         return _regen_shade(cfg, scene, cam_pytree, width, height, spp, px,
                             py, pixel_idx, seed, rng_scheme, jitter, c)
 
+    def shade_segment(c):
+        with TRACER.recompute(request):
+            return shade(c)
+
     def run_chunk(c, tape):
-        for _ in range(chunk):
-            c = _regen_dispatch(cfg, scene,
-                                integrator._sanitize_grad(shade(c)),
-                                early_exit=False, tape=tape)
+        with TRACER.recompute(request):
+            for _ in range(chunk):
+                c = _regen_dispatch(cfg, scene,
+                                    integrator._sanitize_grad(shade(c)),
+                                    early_exit=False, tape=tape)
         return c
 
     if remat == "segment" and n_iters > chunk:
@@ -453,7 +464,7 @@ def trace_regen_scan(cfg: SceneConfig, scene: SceneData, cam_pytree,
                 context_fn=lambda t=tape: (contextlib.nullcontext(), t))
     else:
         for _ in range(scan_iterations(n_iters)):
-            shaded = checkpoint(shade, carry, use_reentrant=False,
+            shaded = checkpoint(shade_segment, carry, use_reentrant=False,
                                 preserve_rng_state=False)
             carry = _regen_dispatch(cfg, scene,
                                     integrator._sanitize_grad(shaded),
@@ -513,6 +524,7 @@ def progressive_reset(state: ProgressiveState) -> ProgressiveState:
         samples=torch.zeros_like(state.samples), seed=state.seed)
 
 
+@spanned("prt.pass", request=True)
 @torch.no_grad()
 def progressive_step(cfg: SceneConfig, scene: SceneData, cam_pytree,
                      state: ProgressiveState, rng_scheme: str = "pcg4d"

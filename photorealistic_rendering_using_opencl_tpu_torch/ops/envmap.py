@@ -19,6 +19,7 @@ import torch
 from photorealistic_rendering_using_opencl_tpu_torch.ops.math import (
     INV_PI, INV_TWO_PI, PI, TWO_PI,
 )
+from photorealistic_rendering_using_opencl_tpu_torch.utils.profiling import TRACER
 
 LUMINANCE = (0.2126, 0.7152, 0.0722)
 
@@ -52,6 +53,10 @@ def sample_bilinear(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
     c10 = tap(y0i, x1i)
     c01 = tap(y1i, x0i)
     c11 = tap(y1i, x1i)
+    if TRACER.on and c00.requires_grad:
+        # the taps' backward scatters the map's gradient (index_put)
+        TRACER.span_nodes("prt.sky_grad",
+                          [c.grad_fn for c in (c00, c10, c01, c11)])
     return ((c00 * (1 - fx) + c10 * fx) * (1 - fy)
             + (c01 * (1 - fx) + c11 * fx) * fy)
 

@@ -45,6 +45,9 @@ from photorealistic_rendering_using_opencl_tpu_torch.scene.types import (
     BOX, DIEL, QUAD, ROUGH_DIEL, SceneConfig, SceneData, SDF, SDF_BOX,
     SDF_CYLINDER, SDF_PLANE, SDF_ROUND_BOX, SDF_SPHERE, SDF_TORUS, SPHERE,
 )
+from photorealistic_rendering_using_opencl_tpu_torch.utils.profiling import (
+    TRACER, spanned,
+)
 
 # the early-exit march asks the device "every lane done?" once this many
 # steps (the reference's while_loop asks every step)
@@ -355,6 +358,13 @@ def bvh_traverse(scene: SceneData, origin, direction, t_init, any_hit=False,
     return (t_init, -1, 0, 0) and visit no node.  CPU tensors run the plain
     twin ``_bvh_traverse_chunk``; CUDA tensors launch W1 (ops/bvh_walk.py)
     or raise."""
+    if TRACER.on:
+        TRACER.count("w1.launches")
+        if isinstance(active, torch.Tensor):
+            TRACER.count_mask("w1.rays", active)
+        else:
+            TRACER.count("w1.rays", origin.shape[0] if active in (None, True)
+                         else 0)
     if origin.device.type == "cpu":
         return _bvh_traverse_chunk(scene, origin, direction, t_init,
                                    any_hit, active, count_steps)
@@ -854,6 +864,7 @@ class DetachedHits(NamedTuple):
     visible: list  # one [N] bool per shadow batch
 
 
+@spanned("prt.intersect")
 @torch.no_grad()
 def intersect_and_shadow_detached(cfg: SceneConfig, scene: SceneData,
                                   origin, direction, active, shadow_batches,
@@ -915,6 +926,7 @@ def intersect_and_shadow_detached(cfg: SceneConfig, scene: SceneData,
     return DetachedHits(t, mesh_id, normal, tri, [~b for b in blocked])
 
 
+@spanned("prt.intersect")
 def finish_hit(cfg: SceneConfig, scene: SceneData, origin, direction,
                rec: DetachedHits) -> Hit:
     """The differentiable half: the detached winners reattached to

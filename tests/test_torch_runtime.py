@@ -465,20 +465,38 @@ def test_describe_and_manifest_match_reference(path, mesh):
 
 
 def test_metrics_spans_and_rates():
+    """The repaired ``Metrics``: spans are the profiler's own ranges and
+    counters count only while a profiler records; the first pass or step
+    begun under one clears what an earlier session counted."""
+    from torch.profiler import ProfilerActivity, profile
     m = profiling.Metrics()
-    with m.span("render"):
-        sum(range(20000))
-    with m.span("render"):
+    assert not m.on
+    assert m.span("prt.shade") is m.begin("prt.pass")  # the shared no-op
+    m.count("rays", 5)
+    assert m.counters == {} and m.request == 1
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as p:
+        for _ in range(2):
+            with m.begin("prt.pass"):
+                with m.span("prt.shade"):
+                    torch.ones(4).sum()
+                m.count("rays", 10**6)
+                m.count_mask("live", torch.tensor([True, False, True]))
+    assert m.request == 3
+    assert m.value("rays") == 2 * 10**6 and m.value("live") == 4
+    spans = [(e.name(), e.kwinputs()["request"])
+             for e in p.profiler.kineto_results.events()
+             if e.name().startswith("prt.")]
+    assert sorted(spans) == [("prt.pass", 2), ("prt.pass", 3),
+                             ("prt.shade", 2), ("prt.shade", 3)]
+    with m.begin("prt.pass"):  # off again: the counts stay readable
         pass
-    m.count("rays", 1e6)
-    m.count("rays", 5e5)
-    total, count = m.spans["render"]
-    assert count == 2 and total > 0
-    assert m.counters["rays"] == 1.5e6
-    assert m.rate("rays", "render") == pytest.approx(1.5e6 / total)
-    rep = m.report()
-    assert "render:" in rep and "over 2 calls" in rep and "rays: 1,500,000" in rep
-    assert profiling.samples_per_sec(64, 32, 4, 2.0) == 64 * 32 * 4 / 2.0
+    assert m.value("rays") == 2 * 10**6
+    with profile(activities=[ProfilerActivity.CPU]):
+        with m.begin("prt.pass"):
+            m.count("rays", 1)
+    assert m.value("rays") == 1 and m.value("live") == 0
+    assert not hasattr(profiling, "samples_per_sec")
+    assert not hasattr(m, "rate") and not hasattr(m, "report")
 
 
 def test_torch_trace_writes_a_chrome_trace(tmp_path):
