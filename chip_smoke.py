@@ -135,10 +135,17 @@ order, none of them optional and none wrapped in a fallback:
      process and through app.main (K2 at export counted); fwd+bwd
      regen_scan at 1024^2 x ENV_FB_SPP (2) spp (the spp cut from
      BASELINE's 256 to fit) over env_map, the
-     colours and the lens, peak memory; K2 on the frame against its plain
-     version; the idle share of a 1-spp regen frame; the env_map
-     gradient's scatter against index_add_ (CUDA events); card against CPU
-     at 64^2 with a 128 x 64 map, 4 bounces, traced lanes, FWD_SHALLOW.
+     colours and the lens, peak memory, E1's launches counted in it (the
+     forward, the recompute, the backward); E1 (csrc/envmap.cu, the sky
+     lookup and its gradient) on the lanes and cotangents of that run's
+     E1_CALLS (2) backward calls with the most live lanes (the count
+     syncs the host each call): the lookup bitwise the plain one's,
+     the map's gradient within 1e-6 of the plain autograd backward's
+     relative to its norm and 1e-5 a large texel, the gradients of u and v
+     within 1e-5, and its times and bounds (CUDA events); K2 on the frame
+     against its plain version; the idle share of a 1-spp regen frame;
+     card against CPU at 64^2 with a 128 x 64 map, 4 bounces, traced
+     lanes, FWD_SHALLOW.
  20. The goldens sdf_demo, cornell_media, envmap and exponential_fog
      through render's default method on the card and the CPU.
 
@@ -3548,6 +3555,9 @@ MEDIUM_EXP = {"type": "exponential", "density": 0.4, "sigmaA": 0.1,
               "sigmaS": 0.6}
 # config 5: the equirect map's size (made from the seed) and the frame
 ENV_H, ENV_W, ENV_SEED = 1024, 2048, 5
+# path C's fwd+bwd: E1 is held on the lanes of its backward calls with the
+# most live lanes
+E1_CALLS = 2
 ENV_SIDE, ENV_CLI_SPP, ENV_FB_SPP = 1024, 8, 2
 THIN_LENS = dict(aperture_radius=0.05, focal_distance=4.0)
 # an SDF normal is a central difference at 2e-5: an ulp of the card's
@@ -3625,9 +3635,11 @@ def seeded_env_map(h=ENV_H, w=ENV_W, seed=ENV_SEED):
 
 
 def reset_counts():
-    from photorealistic_rendering_using_opencl_tpu_torch.ops import bvh_walk, intersect, mesh_brute
+    from photorealistic_rendering_using_opencl_tpu_torch.ops import bvh_walk, envmap, intersect, mesh_brute
     from photorealistic_rendering_using_opencl_tpu_torch.ops import tonemap as tm
     mesh_brute.mesh_brute_kernel.launches = 0
+    envmap.bilinear_kernel.launches = 0
+    envmap.bilinear_kernel.grad_launches = 0
     bvh_walk.bvh_walk_kernel.launches = 0
     tm.tonemap_kernel.launches = 0
     intersect.sdf_march.calls = 0
@@ -3635,11 +3647,13 @@ def reset_counts():
 
 
 def read_counts():
-    from photorealistic_rendering_using_opencl_tpu_torch.ops import bvh_walk, intersect, mesh_brute
+    from photorealistic_rendering_using_opencl_tpu_torch.ops import bvh_walk, envmap, intersect, mesh_brute
     from photorealistic_rendering_using_opencl_tpu_torch.ops import tonemap as tm
     return dict(K1=mesh_brute.mesh_brute_kernel.launches,
                 W1=bvh_walk.bvh_walk_kernel.launches,
                 K2=tm.tonemap_kernel.launches,
+                E1=envmap.bilinear_kernel.launches,
+                E1_grad=envmap.bilinear_kernel.grad_launches,
                 sdf_marches=intersect.sdf_march.calls,
                 sdf_march_steps=intersect.sdf_march.steps)
 
@@ -3765,7 +3779,7 @@ def path_fwd_bwd(label, cfg, scene, cam, w, spp, leaves, gpu_line, seed=3,
         if k in required and (g is None or float(g.abs().max()) == 0.0):
             fail(f"{label} fwd+bwd: the gradient of {k} is zero")
     out = dict(seconds=secs, forward_s=t_fwd, samples_per_s=w * w * spp / secs,
-               iterations=n_iters, peak_gib=peak,
+               iterations=n_iters, peak_gib=peak, forward_counts=counts_fwd,
                grad_max={k: float(g.abs().max()) for k, g in zip(names, grads)
                          if g is not None}, **counts)
     log(f"  {label} fwd+bwd {w}^2 x {spp} spp (regen_scan, {n_iters} "
@@ -4042,13 +4056,15 @@ def phase_env(dev, gpu_line):
     ENV_W x ENV_H equirect map (written by write_hdr, read back), a
     thin-lens camera: the CLI with -hdr at ENV_SIDE^2 x ENV_CLI_SPP (K2 at
     export), and fwd+bwd regen_scan at ENV_SIDE^2 x ENV_FB_SPP with the
-    env_map gradient; the map's gradient is an indexed accumulation, timed
-    against index_add_ on the frame's taps."""
+    env_map gradient, E1's launches counted in it and E1 held on the
+    lanes of its E1_CALLS backward calls with the most live lanes
+    (``e1_check``)."""
     import shutil
     import tempfile
 
     import torch
     from photorealistic_rendering_using_opencl_tpu_torch.models import pathtracer
+    from photorealistic_rendering_using_opencl_tpu_torch.ops import envmap
     from photorealistic_rendering_using_opencl_tpu_torch.runtime import app
     from photorealistic_rendering_using_opencl_tpu_torch.utils.image import (
         read_hdr, write_hdr,
@@ -4081,10 +4097,31 @@ def phase_env(dev, gpu_line):
             f"samples/s), {secs:.2f} s to its return; K2 {counts['K2']} (at "
             f"export), K1 {counts['K1']} (no mesh), on {gpu_line}")
         cfg, scene, cam = env_scene(dev, env, ENV_SIDE)
-        out["fwd_bwd"] = path_fwd_bwd(
-            "C", cfg, scene, cam, ENV_SIDE, ENV_FB_SPP,
-            ["env_map", "color", "camera.aperture_radius",
-             "camera.focal_distance"], gpu_line)
+        k = envmap.bilinear_kernel
+        kept = []
+
+        def keep(img, u, v, grad_out, need_map, need_uv):
+            # the calls whose cotangents reach the most lanes (most are
+            # dead: the count syncs the host each backward call)
+            live = int((grad_out != 0).any(-1).sum())
+            kept[:] = sorted(kept + [(live, (img, u, v, grad_out))],
+                             key=lambda c: -c[0])[:E1_CALLS]
+            return type(k).grad(k, img, u, v, grad_out, need_map, need_uv)
+
+        k.grad = keep
+        try:
+            out["fwd_bwd"] = path_fwd_bwd(
+                "C", cfg, scene, cam, ENV_SIDE, ENV_FB_SPP,
+                ["env_map", "color", "camera.aperture_radius",
+                 "camera.focal_distance"], gpu_line)
+        finally:
+            del k.grad
+        fb = out["fwd_bwd"]
+        out["e1"] = e1_check([c for _, c in kept], dict(
+            forward=fb["forward_counts"]["E1"],
+            recompute=fb["E1"] - fb["forward_counts"]["E1"],
+            backward=fb["E1_grad"], cli=out["cli"]["E1"]))
+        del kept
         out["k2"] = _env_export_k2(cfg, scene, cam)
 
         def one():
@@ -4097,7 +4134,6 @@ def phase_env(dev, gpu_line):
                                  busy_ms=busy)
         log(f"  C regen {ENV_SIDE}^2 x 1 spp profiled: {kernels} kernels, "
             f"{busy:.1f} ms busy, idle share {idle:.3f}")
-        out["index_add"] = _env_taps_timing(scene, cam)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     small = env[::16, ::16].copy()
@@ -4119,41 +4155,78 @@ def _env_export_k2(cfg, scene, cam):
     return cli_k2("path C", img)
 
 
-def _env_taps_timing(scene, cam, reps=10):
-    """The env_map gradient's scatter on one frame's bilinear taps: the
-    autograd backward of the port's lookup (index_put_ with accumulate)
-    against index_add_ of the same cotangents, CUDA events."""
+def e1_check(calls, launches, reps=20):
+    """E1 (csrc/envmap.cu) on the lanes of path C's fwd+bwd, each kept call
+    (the map, u, v and the cotangents its backward received): the lookup
+    bit for bit the plain one's (``envmap.lookup_plain``); the map's
+    gradient within 1e-6 of the plain autograd backward's, relative to its
+    norm, and within 1e-5 per texel where the texel's gradient exceeds 1e-3
+    of the largest; the gradients of u and v within 1e-5 of theirs plus
+    1e-5 of their largest (tests/test_torch_cuda.py's limits).  Times by
+    CUDA events on the call with the most live lanes: the lookup, the map's
+    gradient (the zero fill and the kernel, as the grad cell asks), and
+    the plain forward and backward; their bounds.  ``launches``: E1's
+    launches counted in the fwd+bwd, by part."""
     import torch
     from photorealistic_rendering_using_opencl_tpu_torch.ops import envmap
-    from photorealistic_rendering_using_opencl_tpu_torch.models import pathtracer
-    w = ENV_SIDE
-    px, py = pathtracer.pixel_grid(w, w, scene.device)
-    _, d = pathtracer.camera_rays_for_sample(cam, w, w, px, py, py * w + px,
-                                             0, 0)
-    em = scene.env_map.detach().clone().requires_grad_()
-    rad = envmap.radiance(em, d)
-    g = torch.ones_like(rad)
-    h, wm = em.shape[:2]
-    u, v = envmap.equirect_uv(d)
-    x0 = torch.remainder(torch.floor(u * wm - 0.5).to(torch.int32), wm).long()
-    y0 = torch.clamp(torch.floor(v * h - 0.5).to(torch.int32), 0, h - 1).long()
-    idx = torch.cat([y0 * wm + x0] * 4)
-    src = torch.cat([g] * 4)
-    flat = torch.zeros(h * wm, 3, device=scene.device)
+    k = envmap.bilinear_kernel
+    if len(calls) != E1_CALLS or launches["backward"] == 0 or not all(
+            bool((g != 0).any()) for *_, g in calls):
+        fail(f"E1: {len(calls)} backward calls kept, {launches['backward']} "
+             "backward launches counted, or a kept call with no live lane")
+    res = dict(launches=launches, calls=[])
+    for img, u, v, g in calls:
+        img, u, v = (t.detach() for t in (img, u, v))
+        if not torch.equal(k(img, u, v), envmap.lookup_plain(img, u, v)):
+            fail("E1: the lookup is not the plain one's bit for bit")
+        gm, gu, gv = k.grad(img, u, v, g, True, True)
+        leaves = [t.clone().requires_grad_() for t in (img, u, v)]
+        envmap.lookup_plain(*leaves).backward(g)
+        wm, wu, wv = (t.grad for t in leaves)
+        live = int((g != 0).any(-1).sum())
+        if float(wm.norm()) == 0.0:
+            norm_err = texel_err = float(gm.abs().max())
+        else:
+            norm_err = float((gm - wm).norm() / wm.norm())
+            big = wm.abs() > 1e-3 * wm.abs().max()
+            texel_err = float(((gm - wm).abs() / wm.abs())[big].max())
+        uv_err = max(float(((a - b).abs() / (b.abs() + b.abs().max()))
+                           .nan_to_num(0.0).max()) for a, b in ((gu, wu),
+                                                                (gv, wv)))
+        call = dict(lanes=int(u.shape[0]), live=live, map_norm_err=norm_err,
+                    map_texel_err=texel_err, uv_err=uv_err)
+        res["calls"].append(call)
+        log(f"  E1 on a kept call, {call['lanes']} lanes ({live} live): the "
+            f"lookup bit for bit; the map's gradient {norm_err:.2e} of its "
+            f"norm (1e-6), {texel_err:.2e} a texel (1e-5); u and v "
+            f"{uv_err:.2e} (1e-5)")
+        if norm_err > 1e-6 or texel_err > 1e-5 or uv_err > 1e-5:
+            fail(f"E1 against the plain lookup's autograd backward: {call}")
+    img, u, v, g = max(calls, key=lambda c: int((c[3] != 0).any(-1).sum()))
+    img, u, v = (t.detach() for t in (img, u, v))
+    n, live, texels = u.shape[0], int((g != 0).any(-1).sum()), img.numel() // 3
+    leaf = img.clone().requires_grad_()
 
-    def backward():
-        torch.autograd.grad(rad, em, g, retain_graph=True)
+    def plain():
+        envmap.lookup_plain(leaf, u, v).backward(g)
+        leaf.grad = None
 
-    def index_add():
-        flat.zero_().index_add_(0, idx, src)
-
-    res = {"taps": int(idx.numel()),
-           "autograd_backward_ms": cuda_ms(backward, reps),
-           "index_add_ms": cuda_ms(index_add, reps)}
-    log(f"  env_map gradient's scatter, {res['taps']} taps into a "
-        f"{wm}x{h} map: the lookup's autograd backward "
-        f"{res['autograd_backward_ms']:.3f} ms, index_add_ "
-        f"{res['index_add_ms']:.3f} ms (CUDA events)")
+    # bytes: (u, v) in and [N,3] out a lane, the map once; the gradient a
+    # lane, a live lane's (u, v) and four taps' 12 B, the map zeroed
+    res.update(
+        lanes=n, live=live,
+        ms=cuda_ms(lambda: k(img, u, v), reps),
+        grad_ms=cuda_ms(lambda: k.grad(img, u, v, g, True, False), reps),
+        plain_ms=cuda_ms(plain, 3))
+    res["bound"], res["by"] = bound_ms(20 * n + 12 * texels, 0)
+    res["grad_bound"], res["grad_by"] = bound_ms(
+        12 * n + 56 * live + 12 * texels, 0)
+    log(f"  E1 on {n} lanes ({live} live) of a {img.shape[1]}x{img.shape[0]} "
+        f"map: lookup {res['ms']:.4f} ms (bound {res['bound']:.4f}), the "
+        f"map's gradient {res['grad_ms']:.4f} ms (bound "
+        f"{res['grad_bound']:.4f}), the plain forward and backward "
+        f"{res['plain_ms']:.3f} ms (CUDA events); launches in the fwd+bwd "
+        f"{launches}")
     return res
 
 
@@ -7002,6 +7075,38 @@ def main(argv=None) -> int:
                                ("visits_per_ray", "visits_per_ray"),
                                ("leaf_visits_per_ray", "leaf_visits_per_ray"),
                                ("tri_tests_per_ray", "tri_tests_per_ray"))}})
+    e1 = envp["e1"]
+    e1_paths = {f"C CLI -hdr {ENV_SIDE}^2 x {ENV_CLI_SPP} spp (app.main)":
+                    e1["launches"]["cli"],
+                **{f"C fwd+bwd {ENV_SIDE}^2 x {ENV_FB_SPP} spp (regen_scan), "
+                   f"{part}": e1["launches"][part]
+                   for part in ("forward", "recompute", "backward")}}
+    kernels.append(
+        {"name": "E1 envmap", "route": "cuda",
+         "source": f"{PKG}/csrc/envmap.cu",
+         "replaces": "photorealistic_rendering_using_opencl_tpu/ops/envmap.py:26",
+         "replaces_note": "no TPU kernel: the reference's sample_bilinear, "
+                          "four XLA gathers and a blend, its gradient XLA's "
+                          "scatter-add",
+         "launches": sum(e1_paths.values()), "launches_by_path": e1_paths,
+         "max_abs_err": 0.0, "calls": e1["calls"], "lanes": e1["lanes"],
+         "live_lanes": e1["live"], "ms": e1["ms"], "plain_ms": e1["plain_ms"],
+         "bound_ms": e1["bound"], "bound_by": e1["by"],
+         "grad_ms": e1["grad_ms"], "grad_bound_ms": e1["grad_bound"],
+         "grad_bound_by": e1["grad_by"],
+         "bound_note": "bytes over 3.35 TB/s: the lookup's (u, v) in and "
+                       "12 B out a lane and the map once; the gradient's "
+                       "12 B a lane, a live lane's (u, v) and four taps' "
+                       "12 B, and the map zeroed",
+         "library_ms": None,
+         "library_note": "no PyTorch call computes a bilinear lookup with "
+                         "wrap and clamp; plain_ms is the plain lookup's "
+                         "gathers and blend and their autograd backward",
+         "timed_by": "ms and grad_ms: CUDA events around 20 calls (the "
+                     "latter the wrapper's zero fill and the kernel) on "
+                     "the kept call of path C's fwd+bwd with the most live "
+                     "lanes; plain_ms: CUDA events around 3 forward and "
+                     "backward calls of the plain lookup"})
     tc_paths = {f"phase 28 regen frames {TC_SIDE}^2 x {TC_SPP} spp, each "
                 "reduced form and bf16x3 with the second pass": tc["launches"],
                 f"phase 28 regen frames {TC_SIDE}^2 x {TC_SPP} spp in "

@@ -55,6 +55,11 @@ _SIGNATURES = {
     "prt_matmul_only": [_c_vp, _c_int, _c_vp, _c_vp, _c_ll, _c_int, _c_int,
                         _c_ll, _c_int, _c_vp, _c_vp, _c_vp],
     "prt_passthrough": [_c_vp, _c_vp, _c_ll, _c_vp],
+    "prt_envmap_lookup": [_c_vp, _c_vp, _c_vp, _c_vp, _c_ll, _c_int, _c_int,
+                          _c_vp],
+    "prt_envmap_lookup_grad": [_c_vp, _c_vp, _c_vp, _c_vp, _c_vp, _c_vp,
+                               _c_vp, _c_ll, _c_int, _c_int, _c_int, _c_vp,
+                               _c_vp],
     "prt_bvh_walk": [_c_vp, _c_vp, _c_vp, _c_int, _c_vp, _c_vp, _c_vp, _c_vp,
                      _c_vp, _c_ll, _c_vp, _c_vp, _c_vp, _c_vp, _c_vp, _c_vp,
                      _c_vp],

@@ -5,17 +5,26 @@ equirect lookup with bilinear filtering (u wraps, v clamps), the
 luminance-times-sin(theta) CDF tables built once at load, the continuous
 inverse-CDF sampler and its solid-angle pdf.  The per-row search is a
 bisection of O(log W) single-element gathers, never an [N, W] gather.
-The lookup's backward (the gradient of the map) is an indexed
-accumulation into the [H, W, 3] map: on the card its atomic adds come in
-an order that changes from run to run, so the map's gradient agrees with
-the CPU's to a tolerance, not bitwise.
+
+On the CPU the lookup is four gathers and a blend, and its backward (the
+gradient of the map) an indexed accumulation of each gather.  On the card
+it is one hand-written kernel pair (``csrc/envmap.cu``) behind
+``BilinearLookup``: the forward computes the four taps and the blend in
+the plain expression's order of operations, bit for bit the same; the
+backward adds each lane's four weighted taps into the map with atomic
+adds, and skips a lane whose gradient is exactly zero (most lanes: dead,
+or not a miss).  The atomics come in an order that changes from run to
+run, so the map's gradient agrees with the CPU's to a tolerance, not
+bitwise.  The device alone decides the path.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
+from photorealistic_rendering_using_opencl_tpu_torch.ops import _cuda
 from photorealistic_rendering_using_opencl_tpu_torch.ops.math import (
     INV_PI, INV_TWO_PI, PI, TWO_PI,
 )
@@ -33,6 +42,20 @@ def equirect_uv(direction: torch.Tensor):
 
 def sample_bilinear(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
     """Bilinear fetch from img [H,W,3]; u wraps, v clamps."""
+    if img.device.type == "cuda":
+        out = BilinearLookup.apply(img.contiguous(), u.reshape(-1).contiguous(),
+                                   v.reshape(-1).contiguous())
+        if TRACER.on and out.requires_grad:
+            # the one backward node: the kernel that scatters the map's
+            # gradient
+            TRACER.span_nodes("prt.sky_grad", [out.grad_fn])
+        return out.reshape(*u.shape, 3)
+    return lookup_plain(img, u, v)
+
+
+def lookup_plain(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+    """The lookup as four gathers and a blend, on any device: the CPU's
+    path, and the plain version the card's kernel pair is held to."""
     h, w = img.shape[0], img.shape[1]
     x = u * w - 0.5
     y = v * h - 0.5
@@ -59,6 +82,106 @@ def sample_bilinear(img: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
                           [c.grad_fn for c in (c00, c10, c01, c11)])
     return ((c00 * (1 - fx) + c10 * fx) * (1 - fy)
             + (c01 * (1 - fx) + c11 * fx) * fy)
+
+
+class _BilinearKernel:
+    """Wrappers of ``prt_envmap_lookup`` and ``prt_envmap_lookup_grad``
+    (``csrc/envmap.cu``) on img [H,W,3] and u, v [N] float32.
+    ``launches`` and ``grad_launches`` count the two kernels' launches and
+    nothing else."""
+
+    THREADS = 256  # the backward kernel's block
+    MAX_BLOCKS = 2048  # its grid: some 8 blocks an SM of 132, twice over
+
+    def __init__(self):
+        self.launches = 0
+        self.grad_launches = 0
+
+    @staticmethod
+    def _check(img, u, v):
+        h, w = img.shape[0], img.shape[1]
+        n = u.shape[0]
+        _cuda.require(img, "img", torch.float32, (h, w, 3), img.device)
+        _cuda.require(u, "u", torch.float32, (n,), img.device)
+        _cuda.require(v, "v", torch.float32, (n,), img.device)
+        return h, w, n
+
+    def __call__(self, img, u, v):
+        """The lookup [N,3]."""
+        h, w, n = self._check(img, u, v)
+        out = torch.empty((n, 3), dtype=torch.float32, device=img.device)
+        if n == 0:
+            return out
+        lib = _cuda.LIBRARY.get()
+        with _cuda.on_device(img):
+            code = lib.prt_envmap_lookup(
+                img.data_ptr(), u.data_ptr(), v.data_ptr(), out.data_ptr(),
+                n, h, w, _cuda.stream_handle(img))
+        _cuda.check(code, "prt_envmap_lookup")
+        self.launches += 1
+        return out
+
+    def grad(self, img, u, v, grad_out, need_map: bool, need_uv: bool):
+        """The lookup's backward for grad_out [N,3] -> (the map's gradient
+        [H,W,3] or None, grad_u [N] or None, grad_v [N] or None), each
+        computed only where asked.  While the tracer is on, counter
+        ``sky_grad.writes`` receives the texel writes the kernel made
+        (one count a block, summed after the traced region)."""
+        h, w, n = self._check(img, u, v)
+        dev = img.device
+        _cuda.require(grad_out, "grad_out", torch.float32, (n, 3), dev)
+        grad_map = (torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
+                    if need_map else None)
+        grad_u, grad_v = ((torch.empty((n,), dtype=torch.float32, device=dev),
+                           torch.empty((n,), dtype=torch.float32, device=dev))
+                          if need_uv else (None, None))
+        if n == 0 or not (need_map or need_uv):
+            return grad_map, grad_u, grad_v
+        blocks = min(-(-n // self.THREADS), self.MAX_BLOCKS)
+        counts = (torch.empty((blocks,), dtype=torch.int32, device=dev)
+                  if need_map and TRACER.on else None)
+        lib = _cuda.LIBRARY.get()
+        with _cuda.on_device(img):
+            code = lib.prt_envmap_lookup_grad(
+                img.data_ptr(), u.data_ptr(), v.data_ptr(),
+                grad_out.data_ptr(),
+                *(None if t is None else t.data_ptr()
+                  for t in (grad_map, grad_u, grad_v)),
+                n, h, w, blocks, None if counts is None else counts.data_ptr(),
+                _cuda.stream_handle(img))
+        _cuda.check(code, "prt_envmap_lookup_grad")
+        self.grad_launches += 1
+        if counts is not None:
+            TRACER.count_tensor("sky_grad.writes", counts)
+        return grad_map, grad_u, grad_v
+
+
+bilinear_kernel = _BilinearKernel()
+
+
+class BilinearLookup(torch.autograd.Function):
+    """The lookup of img [H,W,3] at u, v [N] -> [N,3] on CUDA tensors, by
+    the kernel pair, with its gradients of the map, u and v.  It saves u, v
+    and the map, nothing per tap.  While the tracer is on, each backward
+    adds 4 N to counter ``sky_grad.taps``."""
+
+    @staticmethod
+    def forward(ctx, img, u, v):
+        ctx.save_for_backward(img, u, v)
+        return bilinear_kernel(img, u, v)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad_out):
+        img, u, v = ctx.saved_tensors
+        need_map, need_u, need_v = ctx.needs_input_grad
+        need_uv = need_u or need_v
+        if need_map:
+            TRACER.count("sky_grad.taps", 4 * u.shape[0])
+        grad_map, grad_u, grad_v = bilinear_kernel.grad(
+            img, u, v, grad_out.contiguous(), need_map, need_uv)
+        return (grad_map, grad_u if need_u else None,
+                grad_v if need_v else None)
 
 
 def radiance(env_map: torch.Tensor, direction: torch.Tensor) -> torch.Tensor:

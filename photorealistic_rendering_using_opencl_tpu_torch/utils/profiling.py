@@ -35,9 +35,12 @@ bounce loop and of the regeneration loop, forward only), ``loop.lanes`` /
 ``regen.lanes`` (the lanes those steps shaded), ``loop.live_lanes`` /
 ``regen.live_lanes`` (the lanes alive entering them), ``w1.launches`` and
 ``w1.rays`` (calls of ``intersect.bvh_traverse`` and the rays they asked
-to walk).  A count the device holds is kept as its mask and summed by
-``value``, after the region, so that counting launches no kernel inside
-it.
+to walk), ``sky_grad.taps`` (4 a lane of each backward of the sky lookup,
+``envmap.BilinearLookup``) and ``sky_grad.writes`` (the texel writes its
+kernel made: 4 a lane whose gradient is not zero).  A count the device
+holds is kept as its tensor (a mask, or a kernel's counts a block) and
+summed by ``value``, after the region, so that counting launches no
+kernel inside it.
 """
 from __future__ import annotations
 
@@ -66,7 +69,7 @@ class Metrics:
     def __init__(self):
         self.request = 0  # the number of the pass or step begun last
         self.counters: dict[str, int] = {}
-        self._masks: dict[str, list] = {}
+        self._tensors: dict[str, list] = {}
         self._recording = False  # the last pass or step began under a profiler
         self._local = threading.local()  # request of an open backward span
 
@@ -147,8 +150,14 @@ class Metrics:
     def count_mask(self, name: str, mask: torch.Tensor) -> None:
         """Add ``mask``'s true entries to counter ``name``, while on: the
         mask is kept with its version and summed by ``value``."""
+        self.count_tensor(name, mask)
+
+    def count_tensor(self, name: str, counts: torch.Tensor) -> None:
+        """Add the sum of ``counts``' entries (a mask, or the counts a
+        kernel wrote one a block) to counter ``name``, while on: the tensor
+        is kept with its version and summed by ``value``."""
         if self.on:
-            self._masks.setdefault(name, []).append((mask, mask._version))
+            self._tensors.setdefault(name, []).append((counts, counts._version))
 
     def shaded(self, loop: str, step: str, alive: torch.Tensor) -> None:
         """One shading step of ``loop`` in the forward: ``loop.step`` + 1,
@@ -160,19 +169,19 @@ class Metrics:
         self.count_mask(f"{loop}.live_lanes", alive)
 
     def value(self, name: str) -> int:
-        """Counter ``name``: its host integers and its masks' true entries
-        (raises if a mask was changed in place after it was counted)."""
+        """Counter ``name``: its host integers and its tensors' sums
+        (raises if a tensor was changed in place after it was counted)."""
         total = self.counters.get(name, 0)
-        for mask, version in self._masks.get(name, ()):
-            if mask._version != version:
-                raise RuntimeError(f"counter {name!r}: a mask was changed in "
-                                   "place after it was counted")
-            total += int(mask.sum())
+        for counts, version in self._tensors.get(name, ()):
+            if counts._version != version:
+                raise RuntimeError(f"counter {name!r}: a tensor was changed "
+                                   "in place after it was counted")
+            total += int(counts.sum())
         return total
 
     def reset(self) -> None:
         self.counters.clear()
-        self._masks.clear()
+        self._tensors.clear()
 
 
 TRACER = Metrics()

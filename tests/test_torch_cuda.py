@@ -17,7 +17,7 @@ import torch
 
 from photorealistic_rendering_using_opencl_tpu_torch.models import pathtracer
 from photorealistic_rendering_using_opencl_tpu_torch.ops import (
-    bvh_walk, compaction, intersect, mesh_brute, passthrough,
+    bvh_walk, compaction, envmap, intersect, mesh_brute, passthrough,
 )
 from photorealistic_rendering_using_opencl_tpu_torch.ops.intersect import ray_sort_key
 from photorealistic_rendering_using_opencl_tpu_torch.ops import tonemap as tm
@@ -1449,3 +1449,104 @@ def test_unbuilt_sizes_raise_on_card(cuda, monkeypatch):
     assert counts == (mesh_brute.mesh_brute_kernel.launches,
                       mesh_brute.mesh_brute_tc_kernel.launches,
                       mesh_brute.matmul_only_kernel.launches)
+
+
+# ---------------------------------------------------------------------------
+# The sky map's lookup and its gradient (csrc/envmap.cu)
+# ---------------------------------------------------------------------------
+
+SKY_H, SKY_W = 16, 32
+
+
+def _sky_case(case, dev):
+    """img [16,32,3] with a sun, u, v [N] and a gradient [N,3] (positive,
+    so that no texel's sum cancels; a third of the lanes zero): "random"
+    lanes; "edges", u on both sides of the wrap and v past both clamps;
+    "hot spot", every lane on one texel's taps and half the lanes'
+    gradients zero."""
+    rng = np.random.default_rng(["random", "edges", "hot spot"].index(case))
+    img = rng.uniform(0.05, 3.0, (SKY_H, SKY_W, 3)).astype(np.float32)
+    img[5, 7] = 200.0
+    g = rng.uniform(0.1, 1.0, (N, 3)).astype(np.float32)
+    g[::3] = 0.0
+    u, v = rng.uniform(0.0, 1.0, N), rng.uniform(0.0, 1.0, N)
+    if case == "edges":
+        side = rng.random((2, N)) < 0.5
+        u = np.where(side[0], rng.uniform(0, 0.5 / SKY_W, N),
+                     rng.uniform(1 - 0.5 / SKY_W, 1, N))
+        v = np.where(side[1], rng.uniform(0, 0.5 / SKY_H, N),
+                     rng.uniform(1 - 0.5 / SKY_H, 1, N))
+        u[:4], v[:4] = [0, 1, 0, 1], [0, 0, 1, 1]
+    elif case == "hot spot":
+        u = (7.5 + rng.uniform(0.05, 0.95, N)) / SKY_W
+        v = (5.5 + rng.uniform(0.05, 0.95, N)) / SKY_H
+        g[:] = rng.uniform(0.1, 1.0, (N, 3))
+        g[::2] = 0.0
+    return tuple(torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+                 for a in (img, u, v, g))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["random", "edges", "hot spot"])
+def test_sky_lookup_matches_plain(cuda, case):
+    """The kernel pair against the plain path on the card: the lookup bit
+    for bit; the map's gradient within 1e-6 of the plain autograd path's,
+    relative to its norm, and within 1e-5 per texel where the texel's
+    gradient exceeds 1e-3 of the largest (the atomics add in another
+    order); the gradients of u and v within 1e-5."""
+    img, u, v, g = _sky_case(case, cuda)
+    k = envmap.bilinear_kernel
+    before = k.launches, k.grad_launches
+    out = envmap.sample_bilinear(img, u, v)
+    assert torch.equal(out, envmap.lookup_plain(img, u, v))
+    got = [t.clone().requires_grad_() for t in (img, u, v)]
+    envmap.BilinearLookup.apply(*got).backward(g)
+    want = [t.clone().requires_grad_() for t in (img, u, v)]
+    envmap.lookup_plain(*want).backward(g)
+    assert (k.launches, k.grad_launches) == (before[0] + 2, before[1] + 1)
+    gm, wm = got[0].grad, want[0].grad
+    assert float((gm - wm).norm() / wm.norm()) <= 1e-6
+    big = wm.abs() > 1e-3 * wm.abs().max()
+    assert float(((gm - wm).abs() / wm.abs())[big].max()) <= 1e-5
+    for a, b in zip(got[1:], want[1:]):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-5,
+                                   atol=1e-5 * float(b.grad.abs().max()))
+
+
+@pytest.mark.cuda
+def test_sky_grad_kernel_runs_inside_its_span(cuda):
+    """Two hot-spot lookups under the profiler: one prt.sky_grad span a
+    lookup, each holding one launch of the backward kernel; the counters
+    read 4 taps a lane and 4 writes a lane whose gradient is not zero
+    (half of them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from photorealistic_rendering_using_opencl_tpu_torch.utils.profiling import (
+        TRACER)
+    img, u, v, g = _sky_case("hot spot", cuda)
+    img.requires_grad_()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        TRACER.reset()
+        a, b = (envmap.sample_bilinear(img, u, v) for _ in range(2))
+        torch.autograd.backward([a, b], [g, g])
+        torch.cuda.synchronize()
+        taps, writes = (TRACER.value("sky_grad.taps"),
+                        TRACER.value("sky_grad.writes"))
+    cpu = torch.autograd.DeviceType.CPU
+    events = list(prof.profiler.kineto_results.events())
+    spans = [(e.start_ns(), e.start_ns() + e.duration_ns(),
+              e.start_thread_id()) for e in events
+             if e.name() == "prt.sky_grad" and e.device_type() == cpu]
+    kernels = {e.correlation_id() for e in events
+               if "envmap_grad_kernel" in e.name()
+               and e.device_type() != cpu}
+    launches = [(e.start_ns(), e.start_thread_id()) for e in events
+                if e.device_type() == cpu and e.name().startswith("cuda")
+                and e.correlation_id() in kernels]
+    assert len(spans) == 2 and len(kernels) == 2 and len(launches) == 2
+    for s, e, thread in spans:
+        assert sum(s <= t <= e and th == thread for t, th in launches) == 1
+    assert taps == 2 * 4 * N
+    assert writes == 2 * 4 * (N // 2)
+

@@ -7,8 +7,11 @@ Lookups are held within 1e-6 relative on the same (u, v).  The sampling
 tables are cumulative sums, which XLA and
 PyTorch add in other orders: held within 2e-6 of their largest entry.
 ``sample_env``'s row and column are held bitwise on the JAX package's own
-tables carried across.
+tables carried across.  ``BilinearLookup``, the card's lookup kernel pair,
+is held here through its wrappers' calls into the kernel library (the
+kernels run in tests/test_torch_cuda.py).
 """
+import contextlib
 import dataclasses
 
 import jax
@@ -16,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 from photorealistic_rendering_using_opencl_tpu.models import pathtracer as j_pt
 from photorealistic_rendering_using_opencl_tpu.ops import envmap as j_env
@@ -28,6 +32,7 @@ from photorealistic_rendering_using_opencl_tpu_torch.models import pathtracer
 from photorealistic_rendering_using_opencl_tpu_torch.ops import envmap
 from photorealistic_rendering_using_opencl_tpu_torch.ops.camera_rays import default_camera
 from photorealistic_rendering_using_opencl_tpu_torch.scene.loader import build_scene
+from photorealistic_rendering_using_opencl_tpu_torch.utils.profiling import TRACER
 
 torch.set_num_threads(2)
 
@@ -292,3 +297,109 @@ def test_env_map_gradients_match_reference():
         np.testing.assert_allclose(g.numpy(), np.asarray(jg[k]),
                                    rtol=GRAD_RTOL, atol=GRAD_ATOL, err_msg=k)
         assert float(g.abs().max()) > 1e-5, k
+
+
+# ---------------------------------------------------------------------------
+# BilinearLookup: the card's kernel pair, here through its wrappers
+# ---------------------------------------------------------------------------
+
+def _lookup_lanes(h, w, n, seed):
+    """u, v [n] float32 whose taps cross the wrap in u and the clamps in
+    v."""
+    rng = np.random.default_rng(seed)
+    xi = np.concatenate([[-1, w - 1, -1, w - 1], rng.integers(-1, w, n - 4)])
+    yi = np.concatenate([[-1, -1, h - 1, h - 1], rng.integers(-1, h, n - 4)])
+    u = (xi + 0.5 + rng.uniform(0.1, 0.9, n)) / w
+    v = (yi + 0.5 + rng.uniform(0.1, 0.9, n)) / h
+    return _t(u.astype(np.float32)), _t(v.astype(np.float32))
+
+
+def _graph_names(t):
+    names, todo, seen = [], [t.grad_fn], set()
+    while todo:
+        node = todo.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        names.append(type(node).__name__)
+        todo.extend(n for n, _ in node.next_functions)
+    return names
+
+
+def test_sample_bilinear_keeps_the_cpu_graph():
+    """CPU tensors never take the Function: sample_bilinear builds the four
+    gathers' graph (their index_put backward) as it did, and its lookup
+    is the plain one's bit for bit."""
+    img = _t(_env()).requires_grad_()
+    u, v = _lookup_lanes(16, 32, 50, 8)
+    out = envmap.sample_bilinear(img, u, v)
+    names = _graph_names(out)
+    assert names.count("IndexBackward0") == 4
+    assert not any("BilinearLookup" in n for n in names)
+    assert torch.equal(out, envmap.lookup_plain(img, u, v))
+
+
+class _FakeLibrary:
+    """Stands in for the kernel library: records each ``prt_*`` call."""
+
+    def __init__(self):
+        self.calls = []
+
+    def get(self):
+        return self
+
+    def __getattr__(self, name):
+        if not name.startswith("prt_"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_bilinear_kernel_launch_arguments(monkeypatch, traced):
+    """The wrappers' C calls, with a stand-in library (CPU tensors): every
+    pointer, N, H and W; the backward's zeroed map, no u and v gradients
+    unless asked, a grid of 256-lane blocks capped at MAX_BLOCKS, and a
+    counts buffer of one int32 a block only while the tracer is on, kept
+    by counter ``sky_grad.writes``; arguments of another shape refused."""
+    from photorealistic_rendering_using_opencl_tpu_torch.ops import _cuda
+    lib = _FakeLibrary()
+    monkeypatch.setattr(_cuda, "LIBRARY", lib)
+    monkeypatch.setattr(_cuda, "on_device", lambda t: contextlib.nullcontext())
+    monkeypatch.setattr(_cuda, "stream_handle", lambda t: 0)
+    k = envmap.bilinear_kernel
+    img = torch.zeros((4, 8, 3))
+    n = 600
+    u, v, g = torch.zeros(n), torch.zeros(n), torch.ones((n, 3))
+    out = k(img, u, v)
+    [(name, args)] = lib.calls
+    assert name == "prt_envmap_lookup"
+    assert args == (img.data_ptr(), u.data_ptr(), v.data_ptr(),
+                    out.data_ptr(), n, 4, 8, 0)
+    with profile(activities=[ProfilerActivity.CPU]) if traced else \
+            contextlib.nullcontext():
+        TRACER.reset()
+        gm, gu, gv = k.grad(img, u, v, g, True, False)
+        writes = TRACER._tensors.get("sky_grad.writes", [])
+    name, args = lib.calls[1]
+    assert name == "prt_envmap_lookup_grad"
+    assert gu is None and gv is None and torch.equal(gm, torch.zeros(4, 8, 3))
+    assert args[:10] == (img.data_ptr(), u.data_ptr(), v.data_ptr(),
+                         g.data_ptr(), gm.data_ptr(), None, None, n, 4, 8)
+    assert args[10] == 3 and args[12] == 0
+    if traced:
+        [(counts, _)] = writes
+        assert counts.dtype == torch.int32 and counts.shape == (3,)
+        assert args[11] == counts.data_ptr()
+    else:
+        assert writes == [] and args[11] is None
+    gm, gu, gv = k.grad(img, u, v, g, False, True)
+    args = lib.calls[2][1]
+    assert gm is None and args[4:7] == (None, gu.data_ptr(), gv.data_ptr())
+    k.grad(img, torch.zeros(10**6), torch.zeros(10**6),
+           torch.ones((10**6, 3)), True, False)
+    assert lib.calls[3][1][10] == k.MAX_BLOCKS
+    with pytest.raises(ValueError):
+        k(img, u, v[:-1])
+    with pytest.raises(TypeError):
+        k(img.double(), u, v)
+    assert len(lib.calls) == 4

@@ -160,10 +160,12 @@ def test_t1_wrapper_checks_and_block_sizes():
     assert pack.shape == (16, o.shape[0])
     assert torch.equal(pack[11], torch.ones(o.shape[0]))
     assert not pack[12:].any()
+    launches = mesh_brute.matmul_only_kernel.launches
     with pytest.raises(ValueError, match="128 or 256"):
         mesh_brute.matmul_only_kernel(words, pack, torch.from_numpy(bp.feat),
                                       64)
-    assert mesh_brute.matmul_only_kernel.launches == 0  # CPU: plain version
+    # CPU: plain version (other files' stand-in libraries count launches)
+    assert mesh_brute.matmul_only_kernel.launches == launches
 
 
 # ---------------------------------------------------------------------------
